@@ -6,7 +6,10 @@ run on the card unless the caller passes ``device="cpu"``.
 """
 from .config import get_cfg
 from .models import (build_model, backbone_memory_shapes, init_prev_info,
-                     streaming_step)
+                     multi_frame_forward, streaming_step)
+from .training import (TrainState, build_optimizer, make_train_step,
+                       master_copies)
 
-__all__ = ["backbone_memory_shapes", "build_model", "get_cfg",
-           "init_prev_info", "streaming_step"]
+__all__ = ["TrainState", "backbone_memory_shapes", "build_model",
+           "build_optimizer", "get_cfg", "init_prev_info", "make_train_step",
+           "master_copies", "multi_frame_forward", "streaming_step"]

@@ -2,11 +2,17 @@
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors; there is no fallback from one to the other.
-``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count).
+The cost base and the shift are ``torch.autograd.Function``s whose backward
+is a kernel too.  ``LAUNCHES`` counts kernel launches per kernel (plain runs
+do not count).
 """
-from .cost import fused_cost_base, fused_cost_base_plain
+from .cost import (fused_cost_base, fused_cost_base_backward,
+                   fused_cost_base_plain)
 from .launches import LAUNCHES, reset_launches
+from .shift import shift_1d, shift_1d_backward, shift_1d_plain
 from .splat import summation_splat, summation_splat_plain
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_cost_base",
-           "fused_cost_base_plain", "summation_splat", "summation_splat_plain"]
+           "fused_cost_base_backward", "fused_cost_base_plain", "shift_1d",
+           "shift_1d_backward", "shift_1d_plain", "summation_splat",
+           "summation_splat_plain"]

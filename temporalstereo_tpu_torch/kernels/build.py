@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library under ``kernels/_build/`` (listed
-in ``.gitignore``), at first use, then loaded with ``ctypes``.  All sources
-are compiled at once, one ``nvcc`` process each.  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused by later processes of the same checkout.
+Each ``csrc/<name>.cu`` has plain C entry points and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under ``kernels/_build/``
+(listed in ``.gitignore``), at first use, then loaded with ``ctypes``.  All
+sources are compiled at once, one ``nvcc`` process each.  A library's file
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is reused by
+later processes of the same checkout.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("fused_cost_base", "summation_splat")
+KERNELS = ("fused_cost_base", "fused_cost_base_backward", "shift_1d",
+           "summation_splat")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,6 +44,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -29,62 +29,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "vec8.cuh"
+
 namespace {
 
-constexpr int GROUP = 8;
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_io(float v, float) { return v; }
-__device__ __forceinline__ float round_io(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  if (VEC) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = v[i];
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  if (VEC) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = __float2bfloat16_rn(v[i]);
-  }
-}
+using tsk::GROUP;
+using tsk::load8;
+using tsk::round_io;
+using tsk::store1;
+using tsk::store8;
 
 // VEC: the output row stride (2C + C/8 elements) keeps 16-byte alignment.
 template <typename T, bool VEC>
@@ -111,18 +64,18 @@ fused_cost_base_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
   const float fx = xs - x0f;
 
   float r[8], w[8];
-  load8(ref + (row + x) * C + g * GROUP, r);
+  load8<true>(ref + (row + x) * C + g * GROUP, r);
 #pragma unroll
   for (int k = 0; k < 8; ++k) w[k] = 0.f;
   float t0[8], t1[8];
   if (x0f >= 0.f && x0f <= (float)(W - 1)) {
-    load8(tgt + (row + (int)x0f) * C + g * GROUP, t0);
+    load8<true>(tgt + (row + (int)x0f) * C + g * GROUP, t0);
 #pragma unroll
     for (int k = 0; k < 8; ++k) w[k] += (1.f - fx) * t0[k];
   }
   const float x1f = x0f + 1.f;
   if (x1f >= 0.f && x1f <= (float)(W - 1)) {
-    load8(tgt + (row + (int)x1f) * C + g * GROUP, t1);
+    load8<true>(tgt + (row + (int)x1f) * C + g * GROUP, t1);
 #pragma unroll
     for (int k = 0; k < 8; ++k) w[k] += fx * t1[k];
   }

@@ -1,7 +1,8 @@
 """Launch counters and the checks every kernel wrapper makes."""
 from __future__ import annotations
 
-LAUNCHES = {"fused_cost_base": 0, "summation_splat": 0}
+LAUNCHES = {"fused_cost_base": 0, "fused_cost_base_backward": 0,
+            "shift_1d": 0, "shift_1d_backward": 0, "summation_splat": 0}
 
 
 def reset_launches() -> None:
@@ -10,10 +11,14 @@ def reset_launches() -> None:
 
 
 def check_no_grad(name: str, *tensors) -> None:
-    """Neither kernel has a backward yet, so neither path takes gradients."""
+    """For a kernel without a backward: the model never differentiates the
+    temporal splat (the JAX package stops the gradient right after it,
+    ``models/stereo.py:239``, and on the carried state it reads), so a
+    gradient reaching it is a fault in the caller."""
     if any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward; call it under "
-                           "torch.inference_mode() or no_grad()")
+        raise RuntimeError(f"{name} has no backward: the model stops the "
+                           "gradient at the temporal splat; detach its "
+                           "inputs")
 
 
 def cuda_device_index(name: str, *tensors) -> int:

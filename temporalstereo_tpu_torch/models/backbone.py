@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.layers import Conv2d
+from ..nn.layers import BatchNorm, Conv2d
 from ..ops.interpolate import resize_bilinear
 
 
@@ -71,9 +71,9 @@ class EdgeResidual(nn.Module):
         super().__init__()
         mid = in_ch * expand
         self.conv_exp = nn.Conv2d(in_ch, mid, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn1 = BatchNorm(mid)
         self.conv_pwl = nn.Conv2d(mid, channels, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn2 = BatchNorm(channels)
         self.has_residual = stride == 1 and in_ch == channels
 
     def forward(self, x):
@@ -102,13 +102,13 @@ class InvertedResidual(nn.Module):
         self.has_residual = stride == 1 and in_ch == channels
         self.mc = int(in_ch * memory_percent) if self.has_residual else 0
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn1 = BatchNorm(mid)
         self.conv_dw = Conv2dDW(mid, 3, stride)
-        self.bn2 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn2 = BatchNorm(mid)
         self.se = (SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
                    if se_ratio > 0 else None)
         self.conv_pwl = nn.Conv2d(mid, channels, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn3 = BatchNorm(channels)
 
     def forward(self, x, memory: Optional[torch.Tensor] = None,
                 has_memory: Optional[bool] = None):
@@ -138,7 +138,7 @@ class TemporalStereoBackbone(nn.Module):
         super().__init__()
         self.memory_percent = memory_percent
         self.conv_stem = nn.Conv2d(3, STEM_CHANNELS, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(STEM_CHANNELS, eps=1e-5)
+        self.bn1 = BatchNorm(STEM_CHANNELS)
         in_ch = STEM_CHANNELS
         for gi, group in enumerate(groups):
             stages = []

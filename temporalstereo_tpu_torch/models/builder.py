@@ -3,7 +3,12 @@
 Counterpart of the JAX package's ``models/builder.py``, with the same
 variant logic.  Weights are random, drawn from a ``torch.Generator`` seeded
 with ``seed`` (load real ones with ``load_state_dict``); the model is
-returned in eval mode, in the compute type that TRAINER.PRECISION selects.
+returned in eval mode.  Convolution weights are stored in the compute type
+that TRAINER.PRECISION selects; BatchNorm weights and running statistics
+stay f32, as flax keeps them under its bf16 policy (the normalisation runs
+in f32 and returns the compute type).  Training keeps f32 master copies of
+every parameter in its ``TrainState`` and refreshes this working copy from
+them before each step (``training/step.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ConfigNode
+from ..nn.layers import BatchNorm
 from .backbone import TINY_GROUPS
 from .stereo import TemporalStereoNet
 
@@ -58,7 +64,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     * math.sqrt(2.0 / fan_out))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+        elif isinstance(m, BatchNorm):
             m.reset_parameters()
 
 
@@ -95,4 +101,8 @@ def build_model(cfg: ConfigNode, device=None,
         dtype=dtype,
     )
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device=device, dtype=dtype).eval()
+    model.to(device=device, dtype=dtype)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.float()
+    return model.eval()

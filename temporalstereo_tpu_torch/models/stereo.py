@@ -115,7 +115,8 @@ class TemporalStereoNet(nn.Module):
                     new_cost_memory.disp_sample.float(),
                     new_cost_memory.cost_volume.float(),
                     new_cost_memory.valid),
-                prev_disp=full_disp.float(),
+                # the JAX package stops the gradient here (stereo.py:137)
+                prev_disp=full_disp.float().detach(),
                 local_map=prev.local_map.float(),
                 local_map_valid=prev.local_map_valid)
         return outputs, new_prev
@@ -148,8 +149,9 @@ def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
     bl = baseline.float().reshape(-1, 1, 1, 1)
 
     if use_past_cost:
-        ms = prev.cost_memory.disp_sample
-        mv = prev.cost_memory.cost_volume
+        # no gradient through the carried state (JAX stereo.py:186-187)
+        ms = prev.cost_memory.disp_sample.detach()
+        mv = prev.cost_memory.cost_volume.detach()
         h, w = ms.shape[1:3]
         k = ms.shape[-1]
     else:
@@ -184,6 +186,7 @@ def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
         splat_in += [updated[..., 1:1 + k], mv]
     if local_map_size > 0:
         splat_in.append(updated[..., 1 + k:])
+    # nothing that reaches the splat carries a gradient (JAX stereo.py:239)
     warped = softsplat(torch.cat(splat_in, dim=-1), flow, _splat_metric(pd),
                        mode="softmax")
 

@@ -16,7 +16,8 @@ import torch.nn.functional as F
 
 from ..ops.interpolate import resize_trilinear
 from ..ops.upsample import convex_upsample, mask_upsample_9
-from .layers import Activation, Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d
+from .layers import (Activation, BatchNorm, Conv2d, Conv3d, ConvTranspose2d,
+                     ConvTranspose3d)
 
 _NCDHW = (2, 3, 4)
 
@@ -99,7 +100,7 @@ class ConvexUpsample(nn.Module):
         self.up, self.win = upscale_factor, window_size
         self.mask = nn.Sequential(
             nn.Conv2d(in_planes, 64, 3, 1, 1, bias=True),
-            nn.BatchNorm2d(64, eps=1e-5),
+            BatchNorm(64),
             nn.SiLU(),
             nn.Conv2d(64, window_size ** 2 * upscale_factor ** 2, 1,
                       bias=True))

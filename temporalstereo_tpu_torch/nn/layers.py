@@ -1,11 +1,11 @@
 """Conv wrappers with a fused ``.norm`` and activation (channels-first).
 
 Counterpart of the JAX package's ``nn/layers.py``.  Each wrapper is the torch
-conv itself plus an optional BatchNorm under ``.norm`` (eps 1e-5, used in
-eval mode) and an activation, so its ``state_dict`` keys are those of the
-reference implementation (``{prefix}.weight``, ``{prefix}.norm.*``).  Unlike
-the JAX package, separable 3D kernels stay ``nn.Conv3d`` with (1,k,k) and
-(k,1,1) kernels: the JAX package folds depth into 2D convs for XLA.
+conv itself plus an optional ``BatchNorm`` under ``.norm`` (eps 1e-5, flax
+semantics, below) and an activation, so its ``state_dict`` keys are those of
+the reference implementation (``{prefix}.weight``, ``{prefix}.norm.*``).
+Unlike the JAX package, separable 3D kernels stay ``nn.Conv3d`` with (1,k,k)
+and (k,1,1) kernels: the JAX package folds depth into 2D convs for XLA.
 """
 from __future__ import annotations
 
@@ -49,19 +49,61 @@ def get_activation(activation: Activation) -> Callable[[torch.Tensor],
     return table[name]
 
 
-def _norm(kind: Optional[str], channels: int, dims: int) -> Optional[nn.Module]:
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over [B, C, ...] with the JAX package's flax semantics
+    (``nn/layers.py:Norm``: ``nn.BatchNorm(momentum=0.9,
+    use_fast_variance=False)``).
+
+    Eval mode normalises with the running statistics.  Train mode
+    normalises with the batch mean and biased variance (as torch does) and
+    updates ``running_mean``/``running_var`` as 0.9 * old + 0.1 * batch
+    statistic, with the *biased* variance (torch's own layer takes the
+    unbiased one there).  The batch statistics for that update are computed
+    in f32 whatever the input type, the variance in two passes.  Weights and
+    statistics may stay f32 under a bf16 input; the output takes the input's
+    type.
+    """
+
+    FLAX_MOMENTUM = 0.9
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps,
+                         momentum=1.0 - self.FLAX_MOMENTUM)
+
+    def _check_input_dim(self, x):
+        if x.dim() < 3:
+            raise ValueError(f"expected [B, C, ...] input, got {x.dim()}D")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            xf = x.detach().float()
+            mean = xf.mean(dims)
+            shape = [1, -1] + [1] * (x.dim() - 2)
+            var = (xf - mean.view(shape)).square().mean(dims)
+            m = self.FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def _norm(kind: Optional[str], channels: int) -> Optional[nn.Module]:
     if kind is None or kind == "None":
         return None
     if kind in ("BN", "BN1d", "BN3d", "SyncBN", "nnSyncBN", "naiveSyncBN",
                 "FrozenBN"):
-        return (nn.BatchNorm3d if dims == 3 else nn.BatchNorm2d)(
-            channels, eps=BN_EPS)
+        return BatchNorm(channels)
     raise ValueError(f"unsupported norm {kind!r}")
 
 
 class _NormAct:
-    def _setup(self, norm, activation, channels, dims):
-        self.norm = _norm(norm, channels, dims)
+    def _setup(self, norm, activation, channels):
+        self.norm = _norm(norm, channels)
         self.act = get_activation(activation)
 
     def _post(self, y):
@@ -75,7 +117,7 @@ class Conv2d(nn.Conv2d, _NormAct):
                  padding=0, dilation=1, bias=True, norm=None, activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, dilation, bias=bias)
-        self._setup(norm, activation, out_channels, 2)
+        self._setup(norm, activation, out_channels)
 
     def forward(self, x):
         return self._post(super().forward(x))
@@ -86,7 +128,7 @@ class Conv3d(nn.Conv3d, _NormAct):
                  padding=0, dilation=1, bias=True, norm=None, activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, dilation, bias=bias)
-        self._setup(norm, activation, out_channels, 3)
+        self._setup(norm, activation, out_channels)
 
     def forward(self, x):
         return self._post(super().forward(x))
@@ -98,7 +140,7 @@ class ConvTranspose2d(nn.ConvTranspose2d, _NormAct):
                  activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, output_padding, bias=bias)
-        self._setup(norm, activation, out_channels, 2)
+        self._setup(norm, activation, out_channels)
 
     def forward(self, x):
         return self._post(super().forward(x))
@@ -110,7 +152,7 @@ class ConvTranspose3d(nn.ConvTranspose3d, _NormAct):
                  activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, output_padding, bias=bias)
-        self._setup(norm, activation, out_channels, 3)
+        self._setup(norm, activation, out_channels)
 
     def forward(self, x):
         return self._post(super().forward(x))

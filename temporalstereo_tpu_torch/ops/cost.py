@@ -2,18 +2,20 @@
 
 Counterpart of the JAX package's ``ops/cost.py``.  Features are
 [B, H, W, C], hypotheses [B, D, H, W], volumes [B, D, H, W, C'].  The tensor
-path's base (warp + concat + scale-0 correlation) is the fused kernel on
-CUDA tensors and its plain version on CPU tensors
-(``kernels/cost.py``); the pooled correlation scales are plain PyTorch.
-There is no TPU lowering switch.
+path's base (warp + concat + scale-0 correlation) is the fused kernel
+(``kernels/cost.py``); without the correlation pyramid (or with C % 8 != 0)
+the base is concat(ref, warped) and the warp is the shift kernel
+(``kernels/shift.py``).  Each runs its plain version on CPU tensors.  The
+pooled correlation scales are plain PyTorch.  There is no TPU lowering
+switch.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.cost import fused_cost_base
+from ..kernels.shift import shift_1d
 from .interpolate import avg_pool3d, resize_trilinear
-from .warp import shift_1d
 
 CHANNELS_PER_GROUP = 8
 
@@ -69,11 +71,11 @@ def block_cost(reference_fm: torch.Tensor, target_fm: torch.Tensor,
         costs = [fused]
         first = 1
     else:
-        # unfused tensor path (C % 8 != 0 or no pyramid); its W-gather is the
-        # plain shift_1d
+        # unfused tensor path (C % 8 != 0 or no pyramid), JAX's _shift
         d = disp_sample.shape[1]
         ref = reference_fm[:, None].expand(b, d, h, w, c)
-        tgt = shift_1d(target_fm[:, None], -disp_sample)
+        tgt = shift_1d(target_fm[:, None].contiguous(),
+                       (-disp_sample.float()).contiguous())
         costs = [torch.cat([ref, tgt], dim=-1)]
         first = 0
 

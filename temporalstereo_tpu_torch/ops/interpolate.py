@@ -1,4 +1,4 @@
-"""Align-corners resizes and 3D pooling.
+"""Align-corners resizes and pooling.
 
 Counterpart of the JAX package's ``ops/interpolate.py``.  The JAX package
 builds interpolation matrices because gathers are slow on a TPU; here
@@ -55,3 +55,49 @@ def avg_pool3d(x: torch.Tensor, window: Tuple[int, int, int]) -> torch.Tensor:
     dt, ht, wt = d // kd, h // kh, w // kw
     y = x[:, :dt * kd, :ht * kh, :wt * kw]
     return y.reshape(b, dt, kd, ht, kh, wt, kw, c).mean(dim=(2, 4, 6))
+
+
+def _window_view(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """[..., H, W, C] -> [..., H/kh, kh, W/kw, kw, C] for a window that
+    divides H and W."""
+    h, w, c = x.shape[-3:]
+    kh, kw = window
+    if h % kh or w % kw:
+        raise ValueError(f"pool window {window} does not divide {(h, w)}")
+    return x.reshape(*x.shape[:-3], h // kh, kh, w // kw, kw, c)
+
+
+def avg_pool2d(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """Non-overlapping average pool over [..., H, W, C] (stride = window, no
+    padding), for a window that divides H and W."""
+    return _window_view(x, window).mean(dim=(-4, -2))
+
+
+def max_pool2d(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """Non-overlapping max pool over [..., H, W, C], as ``avg_pool2d``."""
+    return _window_view(x, window).amax(dim=(-4, -2))
+
+
+def _adaptive_window(x: torch.Tensor, size: Tuple[int, int]
+                     ) -> Tuple[int, int]:
+    h, w = x.shape[-3:-1]
+    oh, ow = size
+    if h % oh or w % ow:
+        raise ValueError(f"adaptive pools take divisible sizes only: "
+                         f"{(h, w)} -> {tuple(size)}")
+    return h // oh, w // ow
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """[..., H, W, C] -> [..., oh, ow, C] for sizes that divide H and W (the
+    losses' ground-truth rescale)."""
+    window = _adaptive_window(x, size)
+    return x if window == (1, 1) else avg_pool2d(x, window)
+
+
+def adaptive_max_pool2d(x: torch.Tensor, size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """Max-pool counterpart of ``adaptive_avg_pool2d``."""
+    window = _adaptive_window(x, size)
+    return x if window == (1, 1) else max_pool2d(x, window)

@@ -162,9 +162,11 @@ def test_kernel_wrappers_on_cpu_run_plain_and_refuse_grad():
                                kernels.fused_cost_base_plain(ref, ref, disp))
     torch.testing.assert_close(kernels.summation_splat(vals, flow),
                                kernels.summation_splat_plain(vals, flow))
-    assert kernels.LAUNCHES == {"fused_cost_base": 0, "summation_splat": 0}
-    with pytest.raises(RuntimeError, match="no backward"):
-        kernels.fused_cost_base(ref.requires_grad_(), ref, disp)
+    assert set(kernels.LAUNCHES.values()) == {0}
+    # the cost base is differentiable (plain autograd on the CPU); the
+    # splat, which the model never differentiates, refuses a gradient
+    assert kernels.fused_cost_base(ref.requires_grad_(), ref,
+                                   disp).grad_fn is not None
     with pytest.raises(RuntimeError, match="no backward"):
         kernels.summation_splat(vals.requires_grad_(), flow)
     with pytest.raises(TypeError):
