@@ -8,10 +8,14 @@ non-zero exit code and no result line:
   1. environment: torch / CUDA versions, card name and power limit;
   2. build: every hand-written kernel, compiled with nvcc from the checkout;
   3. each kernel against its plain PyTorch version on the card, with the
-     stated tolerances and times: the cost base and the splat at the shapes
-     of the flagship stream, the shift (forward and backward) and the cost
-     base's backward at the shapes of the flagship training step (backward
-     against torch autograd of the plain version, the atomics run twice);
+     stated tolerances and times (the wrapper's, CUDA events around many
+     calls, and the kernel's own device time from torch.profiler): the
+     cost base and the splat at the shapes of the flagship stream, the
+     shift (forward and backward) and the cost base's backward at the
+     shapes of the flagship training step (backward against torch autograd
+     of the plain version, run twice to show it deterministic), the
+     backwards on uniform hypotheses and on model-like ones (a smooth
+     disparity field and the cascade's offsets around it);
   4. the tiny model on the card (kernels) against the same model on the
      CPU (plain versions), f32, TF32 off: three streamed frames, then one
      training step (T=3) with BLOCK_COST_SCALE 3 and 0 (its losses and
@@ -57,7 +61,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 COST_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 2 ** -8)}
 SPLAT_TOL = (1e-5, 1e-6)
 # backward kernels against torch autograd of the plain version: in f32 the
-# sums differ in order (atomics); in bf16 autograd rounds the warped side's
+# sums run in another order; in bf16 autograd rounds the warped side's
 # gradient to bf16 where it meets the correlation's, and again when it sums
 # the broadcast reference over D, where the kernels sum in f32 and round once
 BWD_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -6, 2 ** -6)}
@@ -90,8 +94,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=50, warmup=5):
-    """Median over 5 batches of ``iters`` launches, CUDA-event timed."""
+def cuda_ms_spread(fn, iters=50, warmup=5):
+    """(median, min, max) over 5 batches of ``iters`` launches, CUDA-event
+    timed."""
     import torch
 
     for _ in range(warmup):
@@ -107,7 +112,39 @@ def cuda_ms(fn, iters=50, warmup=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return sorted(times)[2]
+    times.sort()
+    return times[2], times[0], times[-1]
+
+
+def cuda_ms(fn, iters=50, warmup=5):
+    """Median over 5 batches of ``iters`` launches, CUDA-event timed."""
+    return cuda_ms_spread(fn, iters, warmup)[0]
+
+
+def device_ms(fn, kernel, iters=20):
+    """The kernel's own device time per call: torch.profiler over ``iters``
+    calls of ``fn``, the CUDA kernels whose name holds ``kernel``; None if
+    the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+    if len(hits) != iters:
+        return None
+    return sum(e.time_range.elapsed_us() for e in hits) / iters / 1e3
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def close(kernel, plain, rtol, atol_frac):
@@ -143,6 +180,8 @@ def phase_kernels(torch, kernels):
             err_b, ok_b = close(out[..., 2 * c:], plain[..., 2 * c:], rtol,
                                 atol)
             ms = cuda_ms(lambda: kernels.fused_cost_base(ref, tgt, disp))
+            dev_ms = device_ms(lambda: kernels.fused_cost_base(ref, tgt, disp),
+                               "fused_cost_base_kernel")
             plain_ms = cuda_ms(
                 lambda: kernels.fused_cost_base_plain(ref, tgt, disp), 10)
             size = ref.element_size()
@@ -151,12 +190,13 @@ def phase_kernels(torch, kernels):
             row = {"stage": stage, "shape": [1, d, h, w, c],
                    "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": max(err_a, err_b), "ms": ms,
-                   "plain_ms": plain_ms, "bytes": nbytes,
+                   "device_ms": dev_ms, "plain_ms": plain_ms, "bytes": nbytes,
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
             detail["fused_cost_base"].append(row)
             log(3, f"fused_cost_base {stage} {row['dtype']} {row['shape']}: "
                 f"max|d| {row['max_abs_err']:.3g} (tol {rtol:g}*|p| + "
-                f"{atol:g}*max|p|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"{atol:g}*max|p|) kernel {ms:.4f} ms (device "
+                f"{fmt_ms(dev_ms)}) plain {plain_ms:.4f} ms "
                 f"bound {row['bound_ms']:.4f} ms")
             if not (ok_a and ok_b):
                 raise AssertionError(f"fused_cost_base {stage} {dtype} "
@@ -175,16 +215,19 @@ def phase_kernels(torch, kernels):
     err2, ok2 = close(second, plain, *SPLAT_TOL)
     spread = float((first - second).abs().max())
     ms = cuda_ms(lambda: kernels.summation_splat(vals, flow))
+    dev_ms = device_ms(lambda: kernels.summation_splat(vals, flow),
+                       "summation_splat_kernel")
     plain_ms = cuda_ms(lambda: kernels.summation_splat_plain(vals, flow), 10)
     nbytes = 2 * b * h * w * c * 4 + b * h * w * 2 * 4
     row = {"stage": "update", "shape": [b, h, w, c], "dtype": "float32",
            "max_abs_err": max(err, err2), "run_to_run": spread, "ms": ms,
-           "plain_ms": plain_ms, "bytes": nbytes,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     detail["summation_splat"].append(row)
     log(3, f"summation_splat {row['shape']} f32: max|d| {row['max_abs_err']:.3g}"
         f" (tol {SPLAT_TOL[0]:g}*|p| + {SPLAT_TOL[1]:g}*max|p|), run-to-run "
-        f"{spread:.3g}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+        f"{spread:.3g}, kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}) plain "
+        f"{plain_ms:.4f} ms bound "
         f"{row['bound_ms']:.5f} ms")
     if not (ok and ok2):
         raise AssertionError("summation_splat disagrees with its plain version")
@@ -220,25 +263,58 @@ def _spread(first, second):
 
 
 def _row(stage, shape, dtype, err, ms, plain_ms, library_ms, nbytes,
-         spread=None):
+         spread=None, dev_ms=None, case=None, ms_range=None):
     row = {"stage": stage, "shape": shape, "dtype": dtype,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bytes": nbytes,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     if spread is not None:
         row["run_to_run"] = spread
+    if case is not None:
+        row["case"] = case
+    if ms_range is not None:
+        row["ms_min_max"] = list(ms_range)
     return row
 
 
 def _log_row(name, row, tol):
-    log(3, f"{name} {row['stage']} {row['dtype']} {row['shape']}: max|d| "
+    log(3, f"{name} {row['stage']}"
+        + (f" {row['case']}" if "case" in row else "")
+        + f" {row['dtype']} {row['shape']}: max|d| "
         f"{row['max_abs_err']:.3g} (tol {tol[0]:g}*|p| + {tol[1]:g}*max|p|)"
         + (f", run-to-run {row['run_to_run']:.3g}" if "run_to_run" in row
            else "")
-        + f", kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+        + f", kernel {row['ms']:.4f} ms"
+        + (" (5 batches {:.4f}-{:.4f})".format(*row["ms_min_max"])
+           if "ms_min_max" in row else "")
+        + f", device {fmt_ms(row['device_ms'])}, plain "
+        f"{row['plain_ms']:.4f} ms "
         + (f"library {row['library_ms']:.4f} ms " if row['library_ms']
            is not None else "")
         + f"bound {row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.1f} MB)")
+
+
+def model_like_disparity(torch, g, b, d, h, w, dev):
+    """Hypotheses [B, D, H, W] as the cascade hands them to a stage: a
+    smooth disparity field along each row (a seeded sinusoid up to ~w/6 px,
+    and a surface slanted at 0.9 px/px over the last third, so that many
+    pixels sample the same target column), the stage's 5 fractional samples
+    at -4, -1, 0, +1, +4 px around it (fractional_disparity_samples over
+    disp +/- 4), and at the fine stage (d = 8) first 3 local-map hypotheses
+    within +/- 0.5 px of it."""
+    import math
+
+    x = torch.arange(w, device=dev, dtype=torch.float32)
+    phase = torch.rand((b, 1, h, 1), generator=g, device=dev) * 2 * math.pi
+    field = (w / 6) * (0.55 + 0.35 * torch.sin(2 * math.pi * x / w + phase))
+    field = field + 0.9 * torch.clamp(x - 2 * w / 3, min=0)
+    offsets = torch.tensor([-4.0, -1.0, 0.0, 1.0, 4.0], device=dev)
+    disp = field + offsets.view(1, 5, 1, 1)
+    if d > 5:
+        local = field + torch.rand((b, d - 5, h, w), generator=g,
+                                   device=dev) - 0.5
+        disp = torch.cat([local, disp], 1)
+    return disp.contiguous()
 
 
 def _grid_sample_yardstick(torch, img, shift):
@@ -267,7 +343,8 @@ def _grid_sample_yardstick(torch, img, shift):
 def phase_train_kernels(torch, kernels, detail):
     """Phase 3, training shapes: the shift forward and backward and the
     cost base's backward against the plain version (autograd for the
-    backward), bf16 and f32."""
+    backward), bf16 and f32; the backwards on uniform and on model-like
+    hypotheses."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     for name in ("shift_1d", "shift_1d_backward", "fused_cost_base_backward"):
@@ -276,78 +353,100 @@ def phase_train_kernels(torch, kernels, detail):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             size = torch.empty((), dtype=dtype).element_size()
+            shape = [b, d, h, w, c]
             # the shift: img broadcast over D, as block_cost calls it, and
             # shifts over the card's disparity range and past both edges
             img = torch.randn((b, 1, h, w, c), generator=g,
                               device=dev).to(dtype)
-            shift = -(torch.rand((b, d, h, w), generator=g, device=dev)
-                      * (w + 8.0) - 4.0)
+            uniform = (torch.rand((b, d, h, w), generator=g, device=dev)
+                       * (w + 8.0) - 4.0)
+            model = model_like_disparity(torch, g, b, d, h, w, dev)
             go = torch.randn((b, d, h, w, c), generator=g,
                              device=dev).to(dtype)
+            shift = -uniform
             out = kernels.shift_1d(img, shift)
             plain = kernels.shift_1d_plain(img, shift)
-            first = kernels.shift_1d_backward(go, img, shift)
-            second = kernels.shift_1d_backward(go, img, shift)
-            ref_grads, plain_bwd = _autograd(torch, kernels.shift_1d_plain,
-                                             (img, shift), go)
             torch.cuda.synchronize()
             err, ok = close(out, plain, *COST_TOL[dname])
             if not ok:
                 raise AssertionError(f"shift_1d {stage} {dname} disagrees "
                                      "with its plain version")
-            berr = _check_grads(f"shift_1d_backward {stage} {dname}", first,
-                                ref_grads, BWD_TOL[dname])
-            berr = max(berr, _check_grads("shift_1d_backward (rerun)", second,
-                                          ref_grads, BWD_TOL[dname]))
             lib_fwd, lib_bwd = _grid_sample_yardstick(torch, img, shift)
-            shape = [b, d, h, w, c]
             row = _row(stage, shape, dname, err,
                        cuda_ms(lambda: kernels.shift_1d(img, shift)),
                        cuda_ms(lambda: kernels.shift_1d_plain(img, shift), 10),
                        cuda_ms(lib_fwd),
                        b * h * w * c * size + b * d * h * w * 4
-                       + b * d * h * w * c * size)
+                       + b * d * h * w * c * size,
+                       dev_ms=device_ms(lambda: kernels.shift_1d(img, shift),
+                                        "shift_1d_forward_kernel"))
             detail["shift_1d"].append(row)
             _log_row("shift_1d", row, COST_TOL[dname])
-            row = _row(stage, shape, dname, berr,
-                       cuda_ms(lambda: kernels.shift_1d_backward(go, img,
-                                                                 shift)),
-                       cuda_ms(plain_bwd, 10), cuda_ms(lib_bwd),
-                       b * d * h * w * c * size + 2 * b * h * w * c * size
-                       + 2 * b * d * h * w * 4,
-                       _spread(first, second))
-            detail["shift_1d_backward"].append(row)
-            _log_row("shift_1d_backward", row, BWD_TOL[dname])
-            del out, plain, first, second, ref_grads, plain_bwd, lib_fwd, \
-                lib_bwd
+            del out, plain, lib_fwd
+            for case, disp in (("uniform", uniform), ("model", model)):
+                shift = -disp
+                first = kernels.shift_1d_backward(go, img, shift)
+                second = kernels.shift_1d_backward(go, img, shift)
+                ref_grads, plain_bwd = _autograd(
+                    torch, kernels.shift_1d_plain, (img, shift), go)
+                torch.cuda.synchronize()
+                berr = _check_grads(f"shift_1d_backward {stage} {case} "
+                                    f"{dname}", first, ref_grads,
+                                    BWD_TOL[dname])
+                berr = max(berr, _check_grads("shift_1d_backward (rerun)",
+                                              second, ref_grads,
+                                              BWD_TOL[dname]))
+                ms, lo, hi = cuda_ms_spread(
+                    lambda: kernels.shift_1d_backward(go, img, shift))
+                row = _row(stage, shape, dname, berr, ms,
+                           cuda_ms(plain_bwd, 10),
+                           cuda_ms(lib_bwd) if case == "uniform" else None,
+                           b * d * h * w * c * size
+                           + 2 * b * h * w * c * size + 2 * b * d * h * w * 4,
+                           _spread(first, second),
+                           device_ms(lambda: kernels.shift_1d_backward(
+                               go, img, shift), "shift_1d_backward_kernel"),
+                           case, (lo, hi))
+                detail["shift_1d_backward"].append(row)
+                _log_row("shift_1d_backward", row, BWD_TOL[dname])
+                del first, second, ref_grads, plain_bwd
+            del lib_bwd
 
             # the cost base's backward
             co = 2 * c + c // 8
             ref = torch.randn((b, h, w, c), generator=g, device=dev).to(dtype)
             tgt = torch.randn((b, h, w, c), generator=g, device=dev).to(dtype)
-            disp = (torch.rand((b, d, h, w), generator=g, device=dev)
-                    * (w + 8.0) - 4.0)
             go = torch.randn((b, d, h, w, co), generator=g,
                              device=dev).to(dtype)
-            first = kernels.fused_cost_base_backward(go, ref, tgt, disp)
-            second = kernels.fused_cost_base_backward(go, ref, tgt, disp)
-            ref_grads, plain_bwd = _autograd(
-                torch, kernels.fused_cost_base_plain, (ref, tgt, disp), go)
-            torch.cuda.synchronize()
-            berr = _check_grads(f"fused_cost_base_backward {stage} {dname}",
-                                first, ref_grads, BWD_TOL[dname])
-            berr = max(berr, _check_grads("fused_cost_base_backward (rerun)",
-                                          second, ref_grads, BWD_TOL[dname]))
-            row = _row(stage, shape, dname, berr,
-                       cuda_ms(lambda: kernels.fused_cost_base_backward(
-                           go, ref, tgt, disp)),
-                       cuda_ms(plain_bwd, 10), None,
-                       b * d * h * w * co * size + 4 * b * h * w * c * size
-                       + 2 * b * d * h * w * 4,
-                       _spread(first, second))
-            detail["fused_cost_base_backward"].append(row)
-            _log_row("fused_cost_base_backward", row, BWD_TOL[dname])
-            del first, second, ref_grads, plain_bwd
+            for case, disp in (("uniform", uniform), ("model", model)):
+                first = kernels.fused_cost_base_backward(go, ref, tgt, disp)
+                second = kernels.fused_cost_base_backward(go, ref, tgt, disp)
+                ref_grads, plain_bwd = _autograd(
+                    torch, kernels.fused_cost_base_plain, (ref, tgt, disp),
+                    go)
+                torch.cuda.synchronize()
+                berr = _check_grads(f"fused_cost_base_backward {stage} {case} "
+                                    f"{dname}", first, ref_grads,
+                                    BWD_TOL[dname])
+                berr = max(berr, _check_grads(
+                    "fused_cost_base_backward (rerun)", second, ref_grads,
+                    BWD_TOL[dname]))
+                ms, lo, hi = cuda_ms_spread(
+                    lambda: kernels.fused_cost_base_backward(go, ref, tgt,
+                                                             disp))
+                row = _row(stage, shape, dname, berr, ms,
+                           cuda_ms(plain_bwd, 10), None,
+                           b * d * h * w * co * size + 4 * b * h * w * c * size
+                           + 2 * b * d * h * w * 4,
+                           _spread(first, second),
+                           device_ms(lambda: kernels.fused_cost_base_backward(
+                               go, ref, tgt, disp),
+                               "fused_cost_base_backward_kernel"),
+                           case, (lo, hi))
+                detail["fused_cost_base_backward"].append(row)
+                _log_row("fused_cost_base_backward", row, BWD_TOL[dname])
+                del first, second, ref_grads, plain_bwd
+            del go, ref, tgt
             torch.cuda.empty_cache()
 
 
@@ -752,13 +851,13 @@ KERNEL_SOURCES = {
 
 
 def kernels_line(detail, launches_by_path):
-    """One JSON line: per kernel its bf16 rows summed over the stages (the
-    splat's one f32 row), launches summed over the main paths and listed by
-    path."""
+    """One JSON line: per kernel its bf16 rows on uniform hypotheses summed
+    over the stages (the splat's one f32 row), launches summed over the
+    main paths and listed by path; every row in ``detail``."""
     entries = []
     for name, (src, replaces, per) in KERNEL_SOURCES.items():
-        rows = ([r for r in detail[name] if r["dtype"] == "bfloat16"]
-                or detail[name])
+        rows = ([r for r in detail[name] if r["dtype"] == "bfloat16"
+                 and r.get("case", "uniform") == "uniform"] or detail[name])
         by_path = {path: counts[name]
                    for path, counts in launches_by_path.items()}
         lib = [r.get("library_ms") for r in rows]
@@ -769,6 +868,8 @@ def kernels_line(detail, launches_by_path):
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
+            "device_ms": (None if any(r["device_ms"] is None for r in rows)
+                          else sum(r["device_ms"] for r in rows)),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "bytes",

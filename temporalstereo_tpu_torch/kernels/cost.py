@@ -10,9 +10,8 @@ to x - d with zero padding, scale-0 groupwise correlation).  Coordinates and
 arithmetic are f32 for either I/O type; the warped value is rounded to the
 I/O type before the correlation, and each output is rounded once.  The
 backward gives the gradients of all three inputs (the hypotheses carry the
-previous stage's gradient), as ``jax.vjp`` of the JAX formulation does;
-its target gradient sums with atomicAdd, so its last bits vary from run to
-run.
+previous stage's gradient), as ``jax.vjp`` of the JAX formulation does,
+in a fixed order of summation: the backward kernel is deterministic.
 """
 from __future__ import annotations
 
@@ -21,11 +20,22 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import LAUNCHES, cuda_device_index
+from .launches import LAUNCHES, PAIRS, SLICE, cuda_device_index, row_plan
 
 GROUP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
+# elements of the I/O type the backward kernel stages per (pixel,
+# hypothesis) pair and slice: g_ref, g_w, ref and the two tgt taps (32
+# each), g_corr (4, padded to 8)
+_RING_ELEMS = 5 * SLICE + 8
+
+
+def _stage_bytes(elem_size):
+    """Bytes the backward kernel's producer stage hands its owner stage per
+    step: each pair's taps (16) and two values per channel in the I/O
+    type."""
+    return PAIRS * (16 + 2 * SLICE * elem_size)
 
 
 def _kernels():
@@ -37,7 +47,7 @@ def _kernels():
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd = load("fused_cost_base_backward").fused_cost_base_backward
-        bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         _FNS.update(forward=fwd, backward=bwd)
@@ -112,23 +122,25 @@ def fused_cost_base_backward(grad_out: torch.Tensor,
             or grad_out.dtype != reference_fm.dtype:
         raise ValueError(f"output gradient {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} does not match the forward")
+    size = reference_fm.element_size()
+    slices, shared = row_plan(c, w, d * w, _RING_ELEMS, size,
+                              _stage_bytes(size))
     device = cuda_device_index("fused_cost_base_backward", grad_out,
                                reference_fm, target_fm, disp_sample)
     grad_ref = torch.empty_like(reference_fm)
-    grad_tgt = torch.zeros((b, h, w, c), dtype=torch.float32,
-                           device=reference_fm.device)
-    grad_disp = torch.zeros_like(disp_sample)
+    grad_tgt = torch.empty_like(target_fm)
+    grad_disp = torch.empty_like(disp_sample)
     stream = torch.cuda.current_stream(reference_fm.device).cuda_stream
     err = _kernels()["backward"](
         grad_out.data_ptr(), reference_fm.data_ptr(), target_fm.data_ptr(),
         disp_sample.data_ptr(), grad_ref.data_ptr(), grad_tgt.data_ptr(),
-        grad_disp.data_ptr(), b, d, h, w, c, _DTYPES[reference_fm.dtype],
-        device, stream)
+        grad_disp.data_ptr(), b, d, h, w, c, slices, shared,
+        _DTYPES[reference_fm.dtype], device, stream)
     if err:
         raise RuntimeError("fused_cost_base_backward: launch failed, CUDA "
                            f"error {err}")
     LAUNCHES["fused_cost_base_backward"] += 1
-    return grad_ref, grad_tgt.to(reference_fm.dtype), grad_disp
+    return grad_ref, grad_tgt, grad_disp
 
 
 class _FusedCostBase(torch.autograd.Function):

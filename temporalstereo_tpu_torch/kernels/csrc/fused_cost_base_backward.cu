@@ -17,176 +17,283 @@
 // arithmetic is f32; w is recomputed and rounded as the forward rounds it.
 //
 // What bounds it on an H100: bytes.  It reads go (the forward's output size)
-// plus ref, tgt and disp, and writes grad_ref, the f32 grad_tgt and
-// grad_disp: ~135 MB at the fine training shape ([4,8,40,148], C=128, bf16)
-// and ~383 MB at the precise one ([4,5,80,296]), ~40 / ~114 us at 3.35 TB/s.
+// plus ref, tgt and disp, and writes grad_ref, grad_tgt (both in the I/O
+// type) and grad_disp: 128.8 MB at the fine training shape ([4,8,40,148],
+// C=128, bf16) and 358.4 MB at the precise one ([4,5,80,296]), 38 / 107 us
+// at 3.35 TB/s.
 //
-// Design: one thread per (b, h, x, group of 8 channels), the group fastest,
-// looping over the D hypotheses.  grad_ref stays in 8 registers over the
-// loop and is stored once (each thread owns its group: no atomics).  The
-// warped-side gradient goes to the two taps of an f32 grad_tgt with
-// atomicAdd, since hypotheses of different pixels hit the same target
-// pixel.  The pixel's grad_disp is summed over its channel groups with warp
-// shuffles and stored once per hypothesis.  The atomics make the last bits
-// of grad_tgt vary from run to run; the JAX backward is deterministic.
+// Design (row_owner.cuh): the target side's gradient is a scatter along W
+// that many hypotheses of many pixels hit.  One warp owns 32 channels of
+// one row (b, h) and keeps that slice of the row's grad_tgt in shared
+// memory; it walks the row's D * W pairs x-major, with no atomics (on
+// sm_90a a float atomicAdd to shared memory is a compare-and-swap loop),
+// and stores the slice once, in the I/O type.  The producer stage computes,
+// per pair and channel, w (as the forward rounds it), gw and g_ref - 2 diff
+// g_corr, and the pair's sum of gw (t1 - t0) over the slice; the owner stage
+// adds gw's two taps into the row and sums a pixel's grad_ref over its D
+// hypotheses in a register, stored once.  grad_disp is summed over the
+// C / 32 slices (one cluster) through distributed shared memory and stored
+// once.  Every sum has a fixed order: the gradients are deterministic.
+// What holds it back now: instructions and their latency, with 4 (W = 296)
+// to 5 (W = 148) warps per SM: its bytes are read at a fraction of the
+// card's rate (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "row_owner.cuh"
 #include "vec8.cuh"
 
 namespace {
 
-using tsk::GROUP;
-using tsk::load8;
-using tsk::pow2_le_32;
+using tsk::PAIRS;
+using tsk::SLICE;
+using tsk::Stage;
+using tsk::Taps;
 using tsk::round_io;
-using tsk::segment_sum;
-using tsk::store8;
+using tsk::store1;
 using tsk::to_f32;
 
-// VEC: the go row stride (2C + C/8 elements) keeps 16-byte alignment.
-// SEG: a pixel's G = C/8 threads form an aligned power-of-two segment of a
-// warp.  No thread returns early: all lanes take part in the shuffles, and
-// lanes past the end write nothing.
-template <typename T, bool VEC, bool SEG>
-__global__ void __launch_bounds__(256)
+// A pair's ring entry: g_ref, g_w, ref, tgt tap 0, tgt tap 1 (32 each),
+// g_corr (4 of the slice's groups, padded to 8).
+constexpr int PER = 5 * SLICE + 8;
+// The producer's stage: the taps, then gw and g_ref - 2 diff g_corr in the
+// I/O type (autograd of the plain version rounds gw to it too).
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() {
+  return sizeof(Stage) + 2 * PAIRS * SLICE * sizeof(T);
+}
+
+// One block (one warp) per (row b*H + h, slice of 32 channels); the row's
+// slices are one cluster.  ASYNC: rows and go pixels are 16-byte aligned
+// and C % 32 == 0, so the ring fills with cp.async.
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(SLICE)
 fused_cost_base_backward_kernel(const T* __restrict__ go,
                                 const T* __restrict__ ref,
                                 const T* __restrict__ tgt,
                                 const float* __restrict__ disp,
                                 T* __restrict__ grad_ref,
-                                float* __restrict__ grad_tgt,
-                                float* __restrict__ grad_disp, int B, int D,
-                                int H, int W, int C) {
-  const int G = C / GROUP;
-  const int CO = 2 * C + G;
-  const long long total = (long long)B * H * W * G;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < total;
-  const long long ic = active ? i : total - 1;
-  const int g = (int)(ic % G);
-  long long t = ic / G;
-  const int x = (int)(t % W); t /= W;
-  const int h = (int)(t % H);
-  const int b = (int)(t / H);
-  const long long row = ((long long)b * H + h) * W;   // [B,H,W] row start
-  const int c0 = g * GROUP;
+                                T* __restrict__ grad_tgt,
+                                float* __restrict__ grad_disp, int D, int H,
+                                int W, int C, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = D * W;
+  float* acc = reinterpret_cast<float*>(smem);
+  char* col = reinterpret_cast<char*>(acc + threadIdx.x);   // lane's column
+  float* pd = acc + SLICE * (W + 1);
+  T* ring = reinterpret_cast<T*>(smem + tsk::ring_offset(W, n));
+  const int lane = threadIdx.x;
+  const long long row_id = blockIdx.x / S;     // b * H + h
+  const int c0 = (int)(blockIdx.x % S) * SLICE;
+  const int c = c0 + lane;
+  const bool on = c < C;
+  const int CO = 2 * C + C / tsk::GROUP;
+  const long long HW = (long long)H * W;
+  const long long pix0 = (row_id / H * D * H + row_id % H) * W;  // (b,0,h,0)
+  const long long feat0 = row_id * W * C;
+  const T* go_row = go + pix0 * CO;
+  const T* ref_row = ref + feat0;
+  const T* tgt_row = tgt + feat0;
+  T* grad_ref_col = grad_ref + feat0 + c;   // (b, h, 0, c)
+  const float inv_d = 1.f / (float)D;
 
-  float r[8], gr[8];
-  load8<true>(ref + (row + x) * C + c0, r);
+  auto fill = [&](int p0, T* slot) {
+    if constexpr (ASYNC) {
+      constexpr int VEC = 16 / sizeof(T);        // elements per chunk
+      constexpr int CH = SLICE / VEC;            // chunks per 32 channels
 #pragma unroll
-  for (int k = 0; k < 8; ++k) gr[k] = 0.f;
-
-  for (int d = 0; d < D; ++d) {
-    const long long pix = (((long long)b * D + d) * H + h) * W + x;
-    const float xs = (float)x - disp[pix];
-    const float x0f = floorf(xs);
-    const float fx = xs - x0f;
-    const float x1f = x0f + 1.f;
-    const bool v0 = x0f >= 0.f && x0f <= (float)(W - 1);
-    const bool v1 = x1f >= 0.f && x1f <= (float)(W - 1);
-
-    float t0[8], t1[8], w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t0[k] = t1[k] = 0.f;
-    if (v0) load8<true>(tgt + (row + (int)x0f) * C + c0, t0);
-    if (v1) load8<true>(tgt + (row + (int)x1f) * C + c0, t1);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float v = 0.f;
-      if (v0) v += (1.f - fx) * t0[k];
-      if (v1) v += fx * t1[k];
-      w[k] = round_io(v, T());
-    }
-
-    const T* o = go + pix * CO;
-    float g_ref[8], g_w[8];
-    load8<VEC>(o + c0, g_ref);
-    load8<VEC>(o + C + c0, g_w);
-    const float g_corr = to_f32(o[2 * C + g]);
-
-    float s = 0.f;   // d out / d shift, over this group's channels
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float two_diff_gc = 2.f * (r[k] - w[k]) * g_corr;
-      gr[k] += g_ref[k] - two_diff_gc;
-      const float gw = g_w[k] + two_diff_gc;
-      if (v0) {
-        if (active) atomicAdd(grad_tgt + (row + (int)x0f) * C + c0 + k,
-                              (1.f - fx) * gw);
-        s -= gw * t0[k];
+      for (int r = 0; r < (PAIRS * CH + SLICE - 1) / SLICE; ++r) {
+        const int k = r * (SLICE / CH) + lane / CH, e = lane % CH * VEC;
+        const int p = p0 + k;
+        if (k < PAIRS && p < n) {
+          const int x = tsk::pair_x(p, inv_d), d = p - x * D;
+          const Taps tp = tsk::taps(pd[p], W);
+          T* q = slot + k * PER + e;
+          const T* o = go_row + (d * HW + x) * CO + c0;
+          tsk::cp16(q, o + e);
+          tsk::cp16(q + SLICE, o + C + e);
+          tsk::cp16(q + 2 * SLICE, ref_row + (long long)x * C + c0 + e);
+          tsk::cp16z(q + 3 * SLICE, tgt_row + (long long)tp.s0 * C + c0 + e,
+                     tp.v0);
+          tsk::cp16z(q + 4 * SLICE, tgt_row + (long long)tp.s1 * C + c0 + e,
+                     tp.v1);
+          if (e == 0) {   // the slice's 4 groups of g_corr
+            if constexpr (sizeof(T) == 2)
+              tsk::cp8(q + 5 * SLICE, o + 2 * C - c0 + c0 / tsk::GROUP);
+            else
+              tsk::cp16(q + 5 * SLICE, o + 2 * C - c0 + c0 / tsk::GROUP);
+          }
+        }
       }
-      if (v1) {
-        if (active) atomicAdd(grad_tgt + (row + (int)x1f) * C + c0 + k,
-                              fx * gw);
-        s += gw * t1[k];
+    } else {   // lanes past C and invalid taps stage zeros
+      const int cc = on ? c : C - 1;
+      const int gi = c0 / tsk::GROUP + (lane & 3);
+      for (int k = 0; k < PAIRS && p0 + k < n; ++k) {
+        const int p = p0 + k, x = tsk::pair_x(p, inv_d), d = p - x * D;
+        const Taps tp = tsk::taps(pd[p], W);
+        T* q = slot + k * PER;
+        const T* o = go_row + (d * HW + x) * CO;
+        store1(q + lane, on ? to_f32(o[cc]) : 0.f);
+        store1(q + SLICE + lane, on ? to_f32(o[C + cc]) : 0.f);
+        store1(q + 2 * SLICE + lane,
+               on ? to_f32(ref_row[(long long)x * C + cc]) : 0.f);
+        store1(q + 3 * SLICE + lane,
+               on && tp.v0 ? to_f32(tgt_row[(long long)tp.s0 * C + cc]) : 0.f);
+        store1(q + 4 * SLICE + lane,
+               on && tp.v1 ? to_f32(tgt_row[(long long)tp.s1 * C + cc]) : 0.f);
+        if (lane < 4)
+          store1(q + 5 * SLICE + lane,
+                 gi < C / tsk::GROUP ? to_f32(o[2 * C + gi]) : 0.f);
       }
     }
-    if (SEG) {
-      s = segment_sum(s, G);
-      if (active && g == 0) grad_disp[pix] = -s;
-    } else if (active) {
-      atomicAdd(grad_disp + pix, -s);
-    }
-  }
-  if (active) store8<true>(grad_ref + (row + x) * C + c0, gr);
-}
+  };
 
-template <typename T, bool VEC>
-void launch_vec(const void* go, const void* ref, const void* tgt,
-                const void* disp, void* grad_ref, void* grad_tgt,
-                void* grad_disp, int B, int D, int H, int W, int C,
-                cudaStream_t stream) {
-  const long long total = (long long)B * H * W * (C / GROUP);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (pow2_le_32(C / GROUP))
-    fused_cost_base_backward_kernel<T, VEC, true>
-        <<<blocks, threads, 0, stream>>>(
-            (const T*)go, (const T*)ref, (const T*)tgt, (const float*)disp,
-            (T*)grad_ref, (float*)grad_tgt, (float*)grad_disp, B, D, H, W, C);
-  else
-    fused_cost_base_backward_kernel<T, VEC, false>
-        <<<blocks, threads, 0, stream>>>(
-            (const T*)go, (const T*)ref, (const T*)tgt, (const float*)disp,
-            (T*)grad_ref, (float*)grad_tgt, (float*)grad_disp, B, D, H, W, C);
+  // The producer stage: 16-byte chunks of 8 (bf16) or 4 (f32) channels, a
+  // pair's CH lanes side by side, PW pairs per round; it computes gw and
+  // g_ref - 2 diff g_corr per channel into a stage half and the pair's sum
+  // of gw (t1 - t0) over the slice into pd.  The owner stage: lane =
+  // channel.
+  constexpr int VEC = tsk::Chunk<T>::N, CH = SLICE / VEC, PW = SLICE / CH;
+  constexpr int ROUNDS = PAIRS / PW;
+  char* stages = reinterpret_cast<char*>(smem) +
+                 tsk::stage_offset(W, n, PER, sizeof(T));
+  auto stage = [&](int half) {
+    return reinterpret_cast<Stage*>(stages + half * stage_bytes<T>());
+  };
+  Taps tp[ROUNDS];
+  float g_ref[ROUNDS][VEC], g_w[ROUNDS][VEC], rf[ROUNDS][VEC];
+  float t0[ROUNDS][VEC], t1[ROUNDS][VEC], g_corr[ROUNDS], sp[ROUNDS];
+  auto load = [&](int p0, const T* slot) {
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = r * PW + lane / CH, e = lane % CH * VEC;
+      tp[r] = tsk::taps(pd[p0 + k], W);
+      const T* q = slot + k * PER + e;
+      tsk::load_chunk(q, g_ref[r]);
+      tsk::load_chunk(q + SLICE, g_w[r]);
+      tsk::load_chunk(q + 2 * SLICE, rf[r]);
+      tsk::load_chunk(q + 3 * SLICE, t0[r]);   // an invalid tap: zeros
+      tsk::load_chunk(q + 4 * SLICE, t1[r]);
+      g_corr[r] = to_f32(slot[k * PER + 5 * SLICE + e / tsk::GROUP]);
+    }
+  };
+  auto produce = [&](int p0, int half) {
+    Stage* st = stage(half);
+    T* st_gw = reinterpret_cast<T*>(st + 1);   // [PAIRS][32]
+    T* st_gd = st_gw + PAIRS * SLICE;           // [PAIRS][32]
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = r * PW + lane / CH, e = lane % CH * VEC;
+      const float fx = tp[r].fx;
+      float gw[VEC], gd[VEC], sk = 0.f;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        // the forward's warped value, as it rounds it
+        float v = 0.f;
+        v += (1.f - fx) * t0[r][j];
+        v += fx * t1[r][j];
+        const float w = round_io(v, T());
+        const float two_diff_gc = 2.f * (rf[r][j] - w) * g_corr[r];
+        gw[j] = g_w[r][j] + two_diff_gc;
+        gd[j] = g_ref[r][j] - two_diff_gc;
+        sk -= gw[j] * t0[r][j];
+        sk += gw[j] * t1[r][j];
+      }
+      tsk::store_chunk(st_gw + k * SLICE + e, gw);
+      tsk::store_chunk(st_gd + k * SLICE + e, gd);
+      sp[r] = tsk::segment_sum(sk, CH);
+      if (e == 0) st->tap[k] = tsk::stage_tap(tp[r]);
+    }
+  };
+  auto keep = [&](int p0) {   // after every lane has read the positions
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int p = p0 + r * PW + lane / CH;
+      if (lane % CH == 0 && p < n) pd[p] = sp[r];
+    }
+  };
+  // the owner stage; a pair past the end (p >= n) has both taps on the
+  // trash row and stores no grad_ref
+  float gr = 0.f;   // grad_ref of the current pixel over its hypotheses
+  auto own = [&](int p0, const T*, int half) {
+    const Stage* st = stage(half);
+    const T* st_gw = reinterpret_cast<const T*>(st + 1);
+    const T* st_gd = st_gw + PAIRS * SLICE;
+    float a0[PAIRS], a1[PAIRS], gout[PAIRS];
+    int o0[PAIRS], o1[PAIRS], xs[PAIRS];
+    bool last[PAIRS];
+    int x = tsk::pair_x(p0, inv_d), d = p0 - x * D;
+#pragma unroll
+    for (int k = 0; k < PAIRS; ++k) {
+      const float4 t = st->tap[k];
+      const float fx = t.x;
+      o0[k] = __float_as_int(t.y);
+      o1[k] = __float_as_int(t.z);
+      const float gw = to_f32(st_gw[k * SLICE + lane]);
+      a0[k] = (1.f - fx) * gw;
+      a1[k] = fx * gw;
+      gr += to_f32(st_gd[k * SLICE + lane]);
+      gout[k] = gr;
+      last[k] = on && d == D - 1 && p0 + k < n;
+      xs[k] = x;
+      gr = d == D - 1 ? 0.f : gr;
+      if (++d == D) { d = 0; ++x; }
+    }
+    tsk::add_step_taps(col, o0, o1, a0, a1);
+#pragma unroll
+    for (int k = 0; k < PAIRS; ++k)
+      tsk::store_if(grad_ref_col + xs[k] * C, gout[k], last[k]);
+  };
+
+  tsk::begin_row(acc, pd, disp + pix0, -1.f, D, W, HW, lane);
+  tsk::walk<T, PER>(n, ring, fill, load, own, produce, keep);
+  tsk::end_row(acc, pd, grad_tgt + feat0, grad_disp + pix0, -1.f, D, W, C,
+               HW, c, lane);
 }
 
 template <typename T>
 cudaError_t launch(const void* go, const void* ref, const void* tgt,
                    const void* disp, void* grad_ref, void* grad_tgt,
                    void* grad_disp, int B, int D, int H, int W, int C,
-                   cudaStream_t stream) {
-  if ((long long)B * H * W * C == 0) return cudaSuccess;
-  if (((2 * C + C / GROUP) * sizeof(T)) % 16 == 0)
-    launch_vec<T, true>(go, ref, tgt, disp, grad_ref, grad_tgt, grad_disp, B,
-                        D, H, W, C, stream);
-  else
-    launch_vec<T, false>(go, ref, tgt, disp, grad_ref, grad_tgt, grad_disp,
-                         B, D, H, W, C, stream);
-  return cudaGetLastError();
+                   int slices, int smem, cudaStream_t stream) {
+  if ((long long)B * D * H * W * C == 0) return cudaSuccess;
+  if (C % tsk::GROUP || slices > 8 || slices * SLICE < C ||
+      (slices - 1) * SLICE >= C ||
+      smem < tsk::shared_bytes(W, D * W, PER, sizeof(T), stage_bytes<T>()))
+    return cudaErrorInvalidValue;
+  const bool async = C % SLICE == 0 &&
+                     (2 * C + C / tsk::GROUP) * sizeof(T) % 16 == 0;
+  auto kernel = async ? fused_cost_base_backward_kernel<T, true>
+                      : fused_cost_base_backward_kernel<T, false>;
+  return tsk::launch_rows(kernel, (long long)B * H, slices, smem, stream,
+                          (const T*)go, (const T*)ref, (const T*)tgt,
+                          (const float*)disp, (T*)grad_ref, (T*)grad_tgt,
+                          (float*)grad_disp, D, H, W, C, slices);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (go, ref, tgt and grad_ref); disp is
-// float32.  grad_tgt ([B,H,W,C]) and grad_disp ([B,D,H,W]) are float32 and
-// must be zeroed by the caller.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (go, ref, tgt, grad_ref and grad_tgt);
+// disp and grad_disp ([B,D,H,W]) are float32.  Every output element is
+// written exactly once (nothing needs zeroing).  slices = ceil(C / 32) and
+// smem = 4 * (32 W + D W) bytes come from the wrapper's plan
+// (kernels/launches.py:row_plan).  Returns the cudaError_t of the launch.
 extern "C" int fused_cost_base_backward(const void* go, const void* ref,
                                         const void* tgt, const void* disp,
                                         void* grad_ref, void* grad_tgt,
                                         void* grad_disp, int B, int D, int H,
-                                        int W, int C, int dtype, int device,
-                                        void* stream) {
+                                        int W, int C, int slices, int smem,
+                                        int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)launch<float>(go, ref, tgt, disp, grad_ref, grad_tgt,
-                              grad_disp, B, D, H, W, C, s);
+                              grad_disp, B, D, H, W, C, slices, smem, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(go, ref, tgt, disp, grad_ref, grad_tgt,
-                                      grad_disp, B, D, H, W, C, s);
+                                      grad_disp, B, D, H, W, C, slices, smem,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }

@@ -103,8 +103,4 @@ __device__ __forceinline__ float segment_sum(float v, int seg) {
   return v;
 }
 
-__host__ __device__ __forceinline__ bool pow2_le_32(int n) {
-  return n > 0 && n <= 32 && (n & (n - 1)) == 0;
-}
-
 }  // namespace tsk

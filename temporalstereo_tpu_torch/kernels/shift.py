@@ -10,8 +10,7 @@ shift [B, D, H, W] f32 -> [B, D, H, W, C]:
 out[.., x, c] = (1 - f) img[x0, c] + f img[x0 + 1, c], x0 = floor(x + shift)
 in f32, out-of-range taps 0.  The taps are weighted in f32 and the sum is
 rounded once to img's type, as the plain version ``ops/warp.py:shift_1d``
-does.  The backward's img gradient sums with atomicAdd, so its last bits
-vary from run to run.
+does.  The backward kernel sums in a fixed order: it is deterministic.
 """
 from __future__ import annotations
 
@@ -20,10 +19,15 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import LAUNCHES, cuda_device_index
+from .launches import LAUNCHES, PAIRS, SLICE, cuda_device_index, row_plan
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
+# elements of img's type the backward kernel stages per (pixel, hypothesis)
+# pair and slice: g and the two img taps, 32 each; and the bytes its
+# producer stage hands the owner stage per step: each pair's taps
+_RING_ELEMS = 3 * SLICE
+_STAGE_BYTES = PAIRS * 16
 
 
 def _kernels():
@@ -34,7 +38,7 @@ def _kernels():
         fwd, bwd = lib.shift_1d_forward, lib.shift_1d_backward
         fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
-        bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p])
         fwd.restype = bwd.restype = ctypes.c_int
         _FNS.update(forward=fwd, backward=bwd)
@@ -93,19 +97,24 @@ def shift_1d_backward(grad_out: torch.Tensor, img: torch.Tensor,
     if grad_out.shape != (b, d, h, w, c) or grad_out.dtype != img.dtype:
         raise ValueError(f"output gradient {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} does not match the forward")
+    # a gradient row is (b, h) with D pairs per pixel for a broadcast img,
+    # else (b, d, h) with one
+    slices, shared = row_plan(c, w, (d if di == 1 else 1) * w, _RING_ELEMS,
+                              img.element_size(), _STAGE_BYTES)
     device = cuda_device_index("shift_1d_backward", grad_out, img, shift)
-    grad_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-    grad_shift = torch.zeros_like(shift)
+    grad_img = torch.empty_like(img)
+    grad_shift = torch.empty_like(shift)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = _kernels()["backward"](grad_out.data_ptr(), img.data_ptr(),
                                  shift.data_ptr(), grad_img.data_ptr(),
                                  grad_shift.data_ptr(), b, d, di, h, w, c,
-                                 _DTYPES[img.dtype], device, stream)
+                                 slices, shared, _DTYPES[img.dtype], device,
+                                 stream)
     if err:
         raise RuntimeError("shift_1d_backward: launch failed, CUDA error "
                            f"{err}")
     LAUNCHES["shift_1d_backward"] += 1
-    return grad_img.to(img.dtype), grad_shift
+    return grad_img, grad_shift
 
 
 class _Shift1d(torch.autograd.Function):

@@ -34,6 +34,8 @@ from temporalstereo_tpu.training.optim import build_schedule as jax_schedule
 
 from temporalstereo_tpu_torch import kernels
 from temporalstereo_tpu_torch.config import get_cfg
+from temporalstereo_tpu_torch.kernels.launches import (PAIRS, RING_PAIRS,
+                                                      row_plan)
 from temporalstereo_tpu_torch.losses import (DispSmoothL1Loss,
                                              WassersteinDistanceLoss)
 from temporalstereo_tpu_torch.nn.layers import BatchNorm
@@ -65,8 +67,17 @@ def _close(port, ref, **tol):
 
 # ------------------------------------------------------------- kernels ----
 
-@pytest.mark.parametrize("broadcast", [True, False])
-def test_shift_1d_forward_and_vjp_match_pallas(broadcast):
+def _colliding_positions(rng, b, d, h, w):
+    """Sampling positions x + shift that put many (x, d) on a few target
+    columns: integer and fractional, on and past both edges."""
+    cols = np.array([-1.0, -0.5, 0.0, 3.0, 3.5, w - 2.0, w - 1.5, w - 1.0],
+                    np.float32)
+    return cols[rng.randint(0, len(cols), (b, d, h, w))]
+
+
+@pytest.mark.parametrize("broadcast,collide", [(True, False), (False, False),
+                                               (True, True), (False, True)])
+def test_shift_1d_forward_and_vjp_match_pallas(broadcast, collide):
     rng = np.random.RandomState(11)
     b, d, h, w, c = 2, 3, 4, 16, 8
     img = rng.randn(b, 1 if broadcast else d, h, w, c).astype(np.float32)
@@ -75,6 +86,9 @@ def test_shift_1d_forward_and_vjp_match_pallas(broadcast):
     # both edges
     shift[0, 0, 0, :6] = [0.0, -1.0, -15.0, 2.0, 15.0, -3.5]
     shift[1, 1, 2, -3:] = [3.0, 1.0, 0.25]
+    if collide:
+        shift = _colliding_positions(rng, b, d, h, w) - np.arange(
+            w, dtype=np.float32)
     g = rng.randn(b, d, h, w, c).astype(np.float32)
 
     with pltpu.force_tpu_interpret_mode():
@@ -89,13 +103,17 @@ def test_shift_1d_forward_and_vjp_match_pallas(broadcast):
     _close(ts.grad, g_shift)
 
 
-def test_fused_cost_base_forward_and_vjp_match_pallas():
+@pytest.mark.parametrize("collide", [False, True])
+def test_fused_cost_base_forward_and_vjp_match_pallas(collide):
     rng = np.random.RandomState(12)
     b, d, h, w, c = 2, 3, 4, 24, 16
     ref = rng.randn(b, h, w, c).astype(np.float32)
     tgt = rng.randn(b, h, w, c).astype(np.float32)
     disp = rng.uniform(-3, 27, (b, d, h, w)).astype(np.float32)
     disp[0, 0, 0, :4] = [0.0, 3.0, 24.0, -1.0]       # integer hypotheses
+    if collide:    # the warp samples at x - disp
+        disp = np.arange(w, dtype=np.float32) - _colliding_positions(
+            rng, b, d, h, w)
     g = rng.randn(b, d, h, w, 2 * c + c // 8).astype(np.float32)
 
     with pltpu.force_tpu_interpret_mode():
@@ -113,11 +131,45 @@ def test_fused_cost_base_forward_and_vjp_match_pallas():
 def test_cpu_wrappers_launch_nothing():
     rng = np.random.RandomState(13)
     img, shift = _t(rng.rand(1, 1, 2, 8, 4), True), _t(rng.rand(1, 2, 2, 8))
+    ref, tgt = _t(rng.rand(1, 2, 8, 8), True), _t(rng.rand(1, 2, 8, 8), True)
+    disp = _t(rng.rand(1, 3, 2, 8) * 8, True)
     kernels.reset_launches()
     kernels.shift_1d(img, shift).sum().backward()
+    kernels.fused_cost_base(ref, tgt, disp).sum().backward()
     assert set(kernels.LAUNCHES.values()) == {0}
+    assert ref.grad is not None and disp.grad is not None
     with pytest.raises(ValueError):
         kernels.shift_1d(img, shift[:, :, :1])
+    # the backward kernels themselves take CUDA tensors only
+    go = torch.zeros((1, 3, 2, 8, 2 * 8 + 1))
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.fused_cost_base_backward(go, ref.detach(), tgt.detach(),
+                                         disp.detach())
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.shift_1d_backward(torch.zeros((1, 2, 2, 8, 4)), img.detach(),
+                                  shift)
+    assert set(kernels.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("c,w,pairs,elems,size,stage", [
+    (128, 148, 8 * 148, 5 * 32 + 8, 2, 8 * (16 + 128)),   # cost, fine, bf16
+    (128, 296, 5 * 296, 5 * 32 + 8, 4, 8 * (16 + 256)),   # cost, precise, f32
+    (128, 312, 5 * 312, 3 * 32, 4, 128),   # shift, 1248 / 4, f32
+    (24, 37, 37, 3 * 32, 2, 128)])         # one partial slice
+def test_row_plan_covers_the_channels_and_fits(c, w, pairs, elems, size,
+                                               stage):
+    slices, shared = row_plan(c, w, pairs, elems, size, stage)
+    assert (slices - 1) * 32 < c <= slices * 32 <= 8 * 32
+    need = (4 * 32 * (w + 1) + 4 * (-(-pairs // PAIRS) + 1) * PAIRS
+            + RING_PAIRS * elems * size + 2 * stage)
+    assert need <= shared < need + 16 and shared <= 232448
+
+
+@pytest.mark.parametrize("c,w,pairs", [(264, 148, 8 * 148),  # 9 slices
+                                       (128, 2048, 5 * 2048)])  # too wide
+def test_row_plan_refuses_a_shape_that_does_not_fit(c, w, pairs):
+    with pytest.raises(ValueError):
+        row_plan(c, w, pairs, 5 * 32 + 8, 4, 8 * (16 + 256))
 
 
 # --------------------------------------------------------------- pools ----
