@@ -10,12 +10,16 @@ non-zero exit code and no result line:
   3. each kernel against its plain PyTorch version on the card, with the
      stated tolerances and times (the wrapper's, CUDA events around many
      calls, and the kernel's own device time from torch.profiler): the
-     cost base and the splat at the shapes of the flagship stream, the
-     shift (forward and backward) and the cost base's backward at the
-     shapes of the flagship training step (backward against torch autograd
-     of the plain version, run twice to show it deterministic), the
-     backwards on uniform hypotheses and on model-like ones (a smooth
-     disparity field and the cascade's offsets around it);
+     cost base at the shapes of the flagship stream; the one-launch
+     softsplat in softmax and summation mode at the temporal update's
+     shapes of the stream and of the training step, on uniform, rigid
+     (reprojected) and all-on-one-target flows, each row run twice and
+     required bit-identical, its device time summed over everything the
+     call puts on the card; the shift (forward and backward) and the cost
+     base's backward at the shapes of the flagship training step (backward
+     against torch autograd of the plain version, run twice to show it
+     deterministic), the backwards on uniform hypotheses and on model-like
+     ones (a smooth disparity field and the cascade's offsets around it);
   4. the tiny model on the card (kernels) against the same model on the
      CPU (plain versions), f32, TF32 off: three streamed frames, then one
      training step (T=3) with BLOCK_COST_SCALE 3 and 0 (its losses and
@@ -59,6 +63,8 @@ TINY_TRAIN = TINY[:10]           # tiny, stage C=8, f32 over the YAML
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 # |kernel - plain| <= RTOL * |plain| + ATOL * max|plain of that block|
 COST_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 2 ** -8)}
+# the splat's kernel adds each target's taps in source order, the plain
+# version's index_add_ tap by tap: the same products, summed in another order
 SPLAT_TOL = (1e-5, 1e-6)
 # backward kernels against torch autograd of the plain version: in f32 the
 # sums run in another order; in bf16 autograd rounds the warped side's
@@ -121,10 +127,9 @@ def cuda_ms(fn, iters=50, warmup=5):
     return cuda_ms_spread(fn, iters, warmup)[0]
 
 
-def device_ms(fn, kernel, iters=20):
-    """The kernel's own device time per call: torch.profiler over ``iters``
-    calls of ``fn``, the CUDA kernels whose name holds ``kernel``; None if
-    the profiler saw none."""
+def _device_events(fn, iters):
+    """The device events (kernels, memsets, copies) of ``iters`` calls of
+    ``fn`` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -135,12 +140,29 @@ def device_ms(fn, kernel, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.name]
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, kernel, iters=20):
+    """The kernel's own device time per call: torch.profiler over ``iters``
+    calls of ``fn``, the CUDA kernels whose name holds ``kernel``; None if
+    the profiler saw none."""
+    hits = [e for e in _device_events(fn, iters) if kernel in e.name]
     if len(hits) != iters:
         return None
     return sum(e.time_range.elapsed_us() for e in hits) / iters / 1e3
+
+
+def call_device_ms(fn, iters=20):
+    """(device ms, device events) per call of ``fn``, summed over every
+    kernel, memset and copy the call puts on the card; (None, 0) if the
+    profiler saw none."""
+    hits = _device_events(fn, iters)
+    if not hits:
+        return None, 0
+    return (sum(e.time_range.elapsed_us() for e in hits) / iters / 1e3,
+            len(hits) / iters)
 
 
 def fmt_ms(ms):
@@ -159,7 +181,7 @@ def phase_kernels(torch, kernels):
     """Phase 3: every kernel against its plain version at path shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    detail = {"fused_cost_base": [], "summation_splat": []}
+    detail = {"fused_cost_base": []}
 
     # fine @1/8 at the steady state (3 map + 5 fractional hypotheses) and
     # precise @1/4 (5 hypotheses), C = 128
@@ -202,35 +224,6 @@ def phase_kernels(torch, kernels):
                 raise AssertionError(f"fused_cost_base {stage} {dtype} "
                                      "disagrees with its plain version")
 
-    # the temporal update's splat: 48x156, C = 8 (2 samples + 2 costs +
-    # 3 local map + 1 weight), flows of a few pixels so targets collide
-    b, h, w, c = 1, 48, 156, 8
-    vals = torch.rand((b, h, w, c), generator=g, device=dev) * 10
-    flow = (torch.rand((b, h, w, 2), generator=g, device=dev) - 0.5) * 6
-    first = kernels.summation_splat(vals, flow)
-    second = kernels.summation_splat(vals, flow)
-    plain = kernels.summation_splat_plain(vals, flow)
-    torch.cuda.synchronize()
-    err, ok = close(first, plain, *SPLAT_TOL)
-    err2, ok2 = close(second, plain, *SPLAT_TOL)
-    spread = float((first - second).abs().max())
-    ms = cuda_ms(lambda: kernels.summation_splat(vals, flow))
-    dev_ms = device_ms(lambda: kernels.summation_splat(vals, flow),
-                       "summation_splat_kernel")
-    plain_ms = cuda_ms(lambda: kernels.summation_splat_plain(vals, flow), 10)
-    nbytes = 2 * b * h * w * c * 4 + b * h * w * 2 * 4
-    row = {"stage": "update", "shape": [b, h, w, c], "dtype": "float32",
-           "max_abs_err": max(err, err2), "run_to_run": spread, "ms": ms,
-           "device_ms": dev_ms, "plain_ms": plain_ms, "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    detail["summation_splat"].append(row)
-    log(3, f"summation_splat {row['shape']} f32: max|d| {row['max_abs_err']:.3g}"
-        f" (tol {SPLAT_TOL[0]:g}*|p| + {SPLAT_TOL[1]:g}*max|p|), run-to-run "
-        f"{spread:.3g}, kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}) plain "
-        f"{plain_ms:.4f} ms bound "
-        f"{row['bound_ms']:.5f} ms")
-    if not (ok and ok2):
-        raise AssertionError("summation_splat disagrees with its plain version")
     return detail
 
 
@@ -460,6 +453,96 @@ def _geometry(torch, h, w, dev, focal=720.0, baseline=0.54):
     return K, torch.full((1,), baseline, device=dev), T
 
 
+def splat_inputs(torch, case, b, h, w, g, dev):
+    """(inputs [B,H,W,7], flow [B,H,W,2], metric [B,H,W,1]) of one splat
+    row, as models/stereo.py:update_prev_info hands them over: 2 warped
+    disparity samples + 2 costs + 3 local-map channels, and the metric
+    clamp(disparity - its mean, +-50) of a model-like disparity field at
+    1/8 (``model_like_disparity``).  The flow, by ``case``:
+      uniform     uniform in +-3 px on both axes;
+      rigid       that field's reprojection under bench.py's per-frame
+                  motion (focal 720 / 8 px, baseline 0.54 m) through the
+                  port's project_to_3d, sliced out of its [B,H,W,6,2]
+                  output as update_prev_info slices it (strided);
+      one_target  every source onto one point, (w/2 + 0.25, h/2 + 0.5)."""
+    from temporalstereo_tpu_torch.ops.warp import project_to_3d
+
+    disp = model_like_disparity(torch, g, b, 5, h, w, dev)[:, 2, ..., None]
+    metric = torch.clamp(disp - disp.mean(), -50.0, 50.0)
+    inputs = torch.rand((b, h, w, 7), generator=g, device=dev) * 10
+    if case == "uniform":
+        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) - 0.5) * 6
+    elif case == "rigid":
+        K, bl, T = _geometry(torch, h, w, dev, focal=720.0 / 8)
+        depth = bl.view(1, 1, 1, 1) * K[0, 0, 0] / (disp + 1e-5)
+        outs = project_to_3d(depth.expand(b, h, w, 6).contiguous(),
+                             K.expand(b, 3, 3), torch.linalg.inv(K).expand(
+                                 b, 3, 3), T.expand(b, 4, 4))
+        flow = outs["optical_flow"][:, :, :, 0, :]
+    else:
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing="ij")
+        flow = torch.stack([w // 2 + 0.25 - xs, h // 2 + 0.5 - ys], -1)
+        flow = flow.float().expand(b, h, w, 2).contiguous()
+    return inputs, flow, metric
+
+
+# (path, (B, H, W)) of the temporal update: 1/8 of the flagship stream's
+# 384x1248 and of the training crop 320x1184
+SPLAT_SHAPES = (("stream", (1, 48, 156)), ("train", (4, 40, 148)))
+
+
+def phase_splat(torch, kernels, detail):
+    """Phase 3, the temporal update: the one-launch softsplat against its
+    plain version in softmax mode (7 channels + the weight, as the model
+    calls it) and summation mode (the TPU kernel's own function, 8
+    channels), at the stream's and the training step's shapes, on three
+    flows; each row twice, the two bit-identical."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    detail["softsplat"] = []
+    for path, (b, h, w) in SPLAT_SHAPES:
+        for case in ("uniform", "rigid", "one_target"):
+            inputs, flow, metric = splat_inputs(torch, case, b, h, w, g, dev)
+            for mode in ("softmax", "summation"):
+                if mode == "summation":
+                    # what the softmax mode splats: [inputs * e^m, e^m]
+                    inputs = torch.cat([inputs * metric.exp(), metric.exp()],
+                                       -1)
+                    metric = None
+
+                def call(x=inputs, f=flow, m=metric, mode=mode):
+                    return kernels.softsplat(x, f, m, mode)
+                first, second = call(), call()
+                plain = kernels.softsplat_plain(inputs, flow, metric, mode)
+                torch.cuda.synchronize()
+                err, ok = close(first, plain, *SPLAT_TOL)
+                spread = float((first - second).abs().max())
+                same = torch.equal(first, second)
+                ms, lo, hi = cuda_ms_spread(call)
+                dev_ms, events = call_device_ms(call)
+                c = inputs.shape[-1]
+                nbytes = b * h * w * (2 * c * 4 + 8 + (4 if metric is not None
+                                                       else 0))
+                row = _row(path, [b, h, w, c + (mode != "summation")],
+                           "float32", err, ms,
+                           cuda_ms(lambda: kernels.softsplat_plain(
+                               inputs, flow, metric, mode), 10),
+                           None, nbytes, spread, dev_ms, f"{mode} {case}",
+                           (lo, hi))
+                row["device_events_per_call"] = events
+                row["main"] = (path, mode, case) == ("stream", "softmax",
+                                                     "rigid")
+                detail["softsplat"].append(row)
+                _log_row("softsplat", row, SPLAT_TOL)
+                if not ok:
+                    raise AssertionError(f"softsplat {path} {mode} {case} "
+                                         "disagrees with its plain version")
+                if not same:
+                    raise AssertionError(f"softsplat {path} {mode} {case}: "
+                                         f"two runs differ by {spread:.3g}")
+
+
 def run_stream(torch, port, cfg, device, frames, h, w, seed=0, sync=False,
                camera=(720.0, 0.54)):
     """Stream ``frames`` seeded frames through the port -> (per-frame
@@ -541,7 +624,7 @@ def phase_flagship(torch, port, kernels, card, frames=12, warm=4):
         raise AssertionError("local map did not grow to 3 channels")
     want = {"fused_cost_base": 2 * frames, "fused_cost_base_backward": 0,
             "shift_1d": 0, "shift_1d_backward": 0,
-            "summation_splat": frames - 1}
+            "softsplat": frames - 1}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     steady = sorted(secs[warm:])
@@ -737,7 +820,7 @@ def phase_flagship_train(torch, port, kernels, card, steps=3):
         torch, port, kernels, cfg, steps, profile_phase=6)
     want = {"fused_cost_base": 2 * t * steps,
             "fused_cost_base_backward": 2 * steps, "shift_1d": 0,
-            "shift_1d_backward": 0, "summation_splat": (t - 1) * steps}
+            "shift_1d_backward": 0, "softsplat": (t - 1) * steps}
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
     # RMSProp moves a weight by at most lr * |g| / sqrt(0.01 g^2) = 10 lr;
@@ -767,7 +850,7 @@ def phase_no_pyramid_train(torch, port, kernels):
                                                   1)
     want = {"fused_cost_base": 0, "fused_cost_base_backward": 0,
             "shift_1d": 2 * t, "shift_1d_backward": 2,
-            "summation_splat": t - 1}
+            "softsplat": t - 1}
     if launches != want:
         raise AssertionError(f"BLOCK_COST_SCALE 0 launch counts {launches} "
                              f"!= {want}")
@@ -844,20 +927,22 @@ KERNEL_SOURCES = {
     "shift_1d_backward": ("shift_1d.cu",
                           "temporalstereo_tpu/ops/pallas/shift.py:88",
                           "one training step (fine + precise)"),
-    "summation_splat": ("summation_splat.cu",
-                        "temporalstereo_tpu/ops/pallas/splat.py:72",
-                        "one frame of the flagship stream"),
+    "softsplat": ("softsplat.cu", "temporalstereo_tpu/ops/pallas/splat.py:72",
+                  "one temporal update of the flagship stream (softmax, "
+                  "rigid flow)"),
 }
 
 
 def kernels_line(detail, launches_by_path):
     """One JSON line: per kernel its bf16 rows on uniform hypotheses summed
-    over the stages (the splat's one f32 row), launches summed over the
-    main paths and listed by path; every row in ``detail``."""
+    over the stages (the splat's row of the stream's temporal update),
+    launches summed over the main paths and listed by path; every row in
+    ``detail``."""
     entries = []
     for name, (src, replaces, per) in KERNEL_SOURCES.items():
-        rows = ([r for r in detail[name] if r["dtype"] == "bfloat16"
-                 and r.get("case", "uniform") == "uniform"] or detail[name])
+        rows = ([r for r in detail[name] if r.get("main")]
+                or [r for r in detail[name] if r["dtype"] == "bfloat16"
+                    and r.get("case", "uniform") == "uniform"])
         by_path = {path: counts[name]
                    for path, counts in launches_by_path.items()}
         lib = [r.get("library_ms") for r in rows]
@@ -907,6 +992,7 @@ def main():
                 log(2, f"  {name}: {line.strip()}")
 
     detail = phase_kernels(torch, kernels)
+    phase_splat(torch, kernels, detail)
     phase_train_kernels(torch, kernels, detail)
     phase_card_vs_cpu(torch, port)
     phase_train_card_vs_cpu(torch, port)

@@ -3,16 +3,16 @@
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors; there is no fallback from one to the other.
 The cost base and the shift are ``torch.autograd.Function``s whose backward
-is a kernel too.  ``LAUNCHES`` counts kernel launches per kernel (plain runs
-do not count).
+is a kernel too; the splat runs a whole softsplat in one launch.
+``LAUNCHES`` counts kernel launches per kernel (plain runs do not count).
 """
 from .cost import (fused_cost_base, fused_cost_base_backward,
                    fused_cost_base_plain)
 from .launches import LAUNCHES, reset_launches
 from .shift import shift_1d, shift_1d_backward, shift_1d_plain
-from .splat import summation_splat, summation_splat_plain
+from .splat import softsplat, softsplat_plain, splat_plan
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_cost_base",
            "fused_cost_base_backward", "fused_cost_base_plain", "shift_1d",
-           "shift_1d_backward", "shift_1d_plain", "summation_splat",
-           "summation_splat_plain"]
+           "shift_1d_backward", "shift_1d_plain", "softsplat",
+           "softsplat_plain", "splat_plan"]

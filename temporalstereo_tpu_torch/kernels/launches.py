@@ -10,7 +10,7 @@ MAX_SLICES = 8                # the portable cluster size
 MAX_SHARED = 232448           # dynamic shared memory of one sm_90 block, bytes
 
 LAUNCHES = {"fused_cost_base": 0, "fused_cost_base_backward": 0,
-            "shift_1d": 0, "shift_1d_backward": 0, "summation_splat": 0}
+            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": 0}
 
 
 def reset_launches() -> None:
@@ -56,8 +56,10 @@ def check_no_grad(name: str, *tensors) -> None:
                            "inputs")
 
 
-def cuda_device_index(name: str, *tensors) -> int:
-    """Checks before a launch; returns the CUDA device index."""
+def cuda_device_index(name: str, *tensors, contiguous: bool = True) -> int:
+    """Checks before a launch; returns the CUDA device index.  A kernel
+    that reads its inputs with their own strides passes ``contiguous=False``
+    and is only checked for the device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
@@ -65,7 +67,7 @@ def cuda_device_index(name: str, *tensors) -> int:
         if t.device != dev:
             raise ValueError(f"{name}: all inputs must be on {dev}, "
                              f"got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if contiguous and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name}: inputs must be contiguous and "
                              "16-byte aligned")
     return dev.index if dev.index is not None else 0

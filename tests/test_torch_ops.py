@@ -156,19 +156,25 @@ def test_kernel_wrappers_on_cpu_run_plain_and_refuse_grad():
     rng = np.random.RandomState(7)
     ref = _t(rng.rand(1, 4, 8, 8))
     disp = _t(rng.rand(1, 2, 4, 8))
-    vals, flow = _t(rng.rand(1, 4, 8, 3)), _t(rng.randn(1, 4, 8, 2))
+    vals, metric = _t(rng.rand(1, 4, 8, 3)), _t(rng.rand(1, 4, 8, 1))
+    # a strided flow, as update_prev_info slices it out of project_to_3d's
+    flow = _t(rng.randn(1, 4, 8, 3, 2))[:, :, :, 0, :]
     kernels.reset_launches()
     torch.testing.assert_close(kernels.fused_cost_base(ref, ref, disp),
                                kernels.fused_cost_base_plain(ref, ref, disp))
-    torch.testing.assert_close(kernels.summation_splat(vals, flow),
-                               kernels.summation_splat_plain(vals, flow))
+    for mode in ("summation", "softmax"):
+        torch.testing.assert_close(
+            kernels.softsplat(vals, flow, metric, mode),
+            kernels.softsplat_plain(vals, flow.contiguous(), metric, mode))
     assert set(kernels.LAUNCHES.values()) == {0}
     # the cost base is differentiable (plain autograd on the CPU); the
     # splat, which the model never differentiates, refuses a gradient
     assert kernels.fused_cost_base(ref.requires_grad_(), ref,
                                    disp).grad_fn is not None
     with pytest.raises(RuntimeError, match="no backward"):
-        kernels.summation_splat(vals.requires_grad_(), flow)
+        kernels.softsplat(vals, flow, metric.requires_grad_(), "softmax")
+    with pytest.raises(ValueError, match="metric"):
+        kernels.softsplat(vals, flow, None, "softmax")
     with pytest.raises(TypeError):
         kernels.fused_cost_base(ref.detach().double(), ref.detach().double(),
                                 disp)
@@ -245,7 +251,7 @@ def test_summation_splat_plain_matches_pallas_and_scatter():
     vals = rng.rand(b, h, w, c).astype(np.float32)
     flow = rng.uniform(-5, 5, (b, h, w, 2)).astype(np.float32)
     flow[0, 0, :3] = [[-100.0, 0.0], [0.0, 1e9], [2.0, 1.0]]  # off-frame taps
-    ours = kernels.summation_splat(_t(vals), _t(flow))
+    ours = kernels.softsplat(_t(vals), _t(flow), None, "summation")
     with pltpu.force_tpu_interpret_mode():
         pallas = summation_splat_pallas(jnp.asarray(vals), jnp.asarray(flow))
     _close(ours, pallas)
@@ -265,3 +271,63 @@ def test_softsplat_modes(mode):
     theirs = jax_softsplat(jnp.asarray(inputs), jnp.asarray(flow),
                               jnp.asarray(metric), mode, method="scatter")
     _close(ours, theirs, rtol=1e-5, atol=1e-4)
+
+
+def _splat_case(case, rng, b=2, h=5, w=12, c=3):
+    """(inputs, flow, metric) of one splat case; flows in f32 pixels."""
+    inputs = rng.rand(b, h, w, c).astype(np.float32) * 4 - 1
+    metric = rng.uniform(-1, 1, (b, h, w, 1)).astype(np.float32)
+    flow = rng.uniform(-3, 3, (b, h, w, 2)).astype(np.float32)
+    if case == "one_target":
+        # every source onto one point: four buckets of h*w keys each
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+        flow = np.stack([w // 2 + 0.25 - xs, h // 2 + 0.5 - ys], -1)
+        flow = np.broadcast_to(flow, (b, h, w, 2)).copy()
+    elif case == "off_edges":
+        # taps off each edge, one of each pair kept, and whole sources off
+        flow[:, :, 0, 0] = -0.5
+        flow[:, :, -1, 0] = 0.5
+        flow[:, 0, :, 1] = -0.25
+        flow[:, -1, :, 1] = 0.75
+        flow[0, 2, 3:7] = [[1e9, 0.0], [-1e9, 0.0], [0.0, 1e9], [-100.0, 2.0]]
+    elif case == "metric_50":
+        # the model clamps the metric to +-50 before exp (EXPMAX)
+        metric = rng.choice([-50.0, 50.0, 0.0], (b, h, w, 1)).astype(
+            np.float32)
+    return inputs, flow, metric
+
+
+@pytest.mark.parametrize("mode,case", [
+    (mode, case) for mode in ("summation", "average", "linear", "softmax")
+    for case in ("uniform", "one_target", "off_edges")]
+    + [("linear", "metric_50"), ("softmax", "metric_50")])
+def test_softsplat_plain_matches_jax(mode, case):
+    """softsplat_plain against JAX softsplat (the scatter, and in summation
+    mode the Pallas kernel in interpret mode).  Tolerance f32
+    1e-5 |p| + 1e-6 max|p|: the contributions are the same products, but the
+    three formulations add a target's taps in different orders."""
+    rng = np.random.RandomState(14)
+    inputs, flow, metric = _splat_case(case, rng)
+    ours = kernels.softsplat_plain(_t(inputs), _t(flow), _t(metric), mode)
+    refs = [jax_softsplat(jnp.asarray(inputs), jnp.asarray(flow),
+                          jnp.asarray(metric), mode, method="scatter")]
+    if mode == "summation":
+        with pltpu.force_tpu_interpret_mode():
+            refs.append(summation_splat_pallas(jnp.asarray(inputs),
+                                               jnp.asarray(flow)))
+    for ref in refs:
+        ref = np.asarray(ref)
+        assert np.isfinite(ref).all()
+        bound = 1e-5 * np.abs(ref) + 1e-6 * np.abs(ref).max()
+        err = np.abs(ours.numpy() - ref)
+        assert (err <= bound).all(), float(err.max())
+
+
+def test_splat_plan_tiles_the_port_paths_and_refuses_larger():
+    # the stream's and the training step's temporal update (1/8 of
+    # 384x1248 and 320x1184) on a card of 132 SMs: about one block per SM
+    assert kernels.splat_plan(1, 48, 156, 132) == 57
+    assert kernels.splat_plan(4, 40, 148, 132) == 128
+    assert kernels.splat_plan(2, 5, 12, 132) == 1
+    with pytest.raises(ValueError, match="int32"):
+        kernels.splat_plan(1, 2 ** 14, 2 ** 14, 132)
