@@ -36,7 +36,20 @@ non-zero exit code and no result line:
      torch.profiler;
   7. the same step with BLOCK_COST_SCALE 0 (the shift kernel's path) at
      T=2, B=1: launch counts, finite outputs;
-  8. one JSON line listing every kernel, then the result line.
+  8. serving: the flagship stream's stages captured as CUDA graphs
+     (serving.StreamingBundle; capture time per stage), 12 replayed frames
+     against the same stream run eagerly (gated at 5e-3, bit-equality
+     reported), two replays of the same inputs bit-identical, the cost
+     base's and the splat's kernels counted by name (torch.profiler) in
+     the replayed stream and in one steady replay, the steady median and
+     peak memory; the same with BatchNorm folded and with bf16 weights
+     (finite; their difference from the unfolded model reported, each
+     frame from its state and free-running), the folded tiny f32 model
+     against the unfolded one, each frame from the unfolded model's state
+     (gated at 2e-3); the video_inference CLI from a
+     bundle at 384x1248 on six PNG frames the port's codec wrote; the
+     bench (python -m temporalstereo_tpu_torch.bench) and its JSON line;
+  9. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -914,6 +927,328 @@ def profile_stream(torch, port, cfg, h, w):
     profile(torch, 5, frame, 2, "frame")
 
 
+# the serving phase: replays against eager, folded against unfolded
+FOLD_TOL = 2e-3                 # the single-frame model tolerance of the tests
+COST_KERNEL = "fused_cost_base_kernel"
+SPLAT_KERNEL = "softsplat_kernel"
+
+
+def randomize_batch_norms(torch, model, seed):
+    """Seeded BatchNorm parameters and statistics away from identity
+    (scale and variance in [0.75, 1.25], shift and mean ~ N(0, 0.1)), so
+    that folding and the bf16 cast change the arithmetic."""
+    from temporalstereo_tpu_torch.nn.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.num_features
+                for t, fill in ((m.weight, "rand"), (m.bias, "randn"),
+                                (m.running_mean, "randn"),
+                                (m.running_var, "rand")):
+                    x = (torch.rand(n, generator=g) * 0.5 + 0.75
+                         if fill == "rand" else torch.randn(n, generator=g)
+                         * 0.1)
+                    t.copy_(x)
+
+
+def seeded_frames(torch, n, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.rand((1, h, w, 3), generator=g).cuda(),
+             torch.rand((1, h, w, 3), generator=g).cuda()) for _ in range(n)]
+
+
+def kernel_counts(torch, fn):
+    """(events, {kernel: launches}) that one call of ``fn`` puts on the
+    card, by torch.profiler; the two kernels of the stream by name."""
+    events = _device_events(fn, 1)
+    return len(events), {
+        "fused_cost_base": sum(COST_KERNEL in e.name for e in events),
+        "softsplat": sum(SPLAT_KERNEL in e.name for e in events)}
+
+
+def max_rel(torch, outs, refs):
+    return max(float((a - b).abs().max() / (b.abs().mean() + 1e-6))
+               for a, b in zip(outs, refs))
+
+
+def agreement(torch, outs, refs):
+    """How far disparities are from reference ones: (max|d| / mean|ref|,
+    mean|d| / mean|ref|, share of pixels more than 3 px off)."""
+    d = torch.stack([(a - b).abs() for a, b in zip(outs, refs)])
+    scale = float(torch.stack(refs).abs().mean()) + 1e-6
+    return (float(d.max()) / scale, float(d.mean()) / scale,
+            float((d > 3).float().mean()))
+
+
+def same_state(torch, port, serving, ref, model, pairs, K, bl, T):
+    """(model's, ref's) four disparities of each frame when ``model``
+    starts every frame from ``ref``'s state: what one step of the stream
+    adds, without the recurrence."""
+    prev = serving.initial_prev(ref, 1, *pairs[0][0].shape[1:3])
+    got, want = [], []
+    for left, right in pairs:
+        out, nxt = port.streaming_step(ref, left, right, prev, K, bl, T)
+        ours, _ = port.streaming_step(model, left, right, prev, K, bl, T)
+        got += ours["disps"]
+        want += out["disps"]
+        prev = nxt
+    return got, want
+
+
+def serve(torch, serving, model, frames, K, bl, T, fold_bn=False):
+    """Capture the model's stages and replay ``frames`` (each step timed
+    with a synchronise) -> (bundle, disparities, per-frame seconds, bytes
+    the capture left allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    h, w = frames[0][0].shape[1:3]
+    bundle = serving.StreamingBundle(
+        serving.bundle_meta(model, 1, h, w, fold_bn), model,
+        progress=lambda msg: None)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    outs, secs = [], []
+    for left, right in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(bundle.step(left, right, K, bl, T))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return bundle, outs, secs, held
+
+
+def eager_stream(torch, port, serving, model, frames, K, bl, T):
+    prev = serving.initial_prev(model, 1, *frames[0][0].shape[1:3])
+    outs = []
+    for left, right in frames:
+        out, prev = port.streaming_step(model, left, right, prev, K, bl, T)
+        outs.append(out["disps"][0])
+    return outs, prev
+
+
+def serving_model(torch, port, cfg, prep=None):
+    """The seeded model with seeded BatchNorms, prepared (folded, cast)."""
+    model = port.build_model(cfg, seed=0)
+    randomize_batch_norms(torch, model, seed=9)
+    return model if prep is None else prep(model)
+
+
+def phase_serving(torch, port, kernels, card, frames=12, warm=4):
+    """Phase 8: the flagship stream as CUDA-graph replays
+    (serving.StreamingBundle) against the same stream run eagerly, unfolded,
+    with BatchNorm folded and with bf16 weights; the folded tiny f32 model
+    against the unfolded one -> the launches of the unfolded replays."""
+    from temporalstereo_tpu_torch import serving
+    from temporalstereo_tpu_torch.utils.fold_bn import fold_batch_norms
+
+    h, w = 384, 1248
+    cfg = port.get_cfg(opts=FLAGSHIP)
+    K, bl, T = _geometry(torch, h, w, "cuda")
+    pairs = seeded_frames(torch, frames, h, w, seed=8)
+    ref = serving_model(torch, port, cfg)
+    base = launches = None
+    variants = (("unfolded", None),
+                ("fold_bn", lambda m: fold_batch_norms(m)[0]),
+                ("bf16_params", serving.cast_params_bf16))
+    for label, prep in variants:
+        torch.cuda.empty_cache()
+        model = ref if prep is None else serving_model(torch, port, cfg,
+                                                        prep)
+        weights = sum(t.numel() * t.element_size()
+                      for t in model.state_dict().values())
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bundle, outs, secs, held = serve(torch, serving, model, pairs, K, bl,
+                                         T, label == "fold_bn")
+        peak = torch.cuda.max_memory_allocated() - start
+        stages = list(bundle.capture_seconds)
+        if stages != bundle.meta["stages"]:
+            raise AssertionError(f"serving {label}: captured {stages}")
+        if not all(bool(torch.isfinite(o).all()) and o.shape == (1, h, w, 1)
+                   for o in outs):
+            raise AssertionError(f"serving {label}: disparities not finite")
+        # a second pass of the same inputs, profiled: bit-identical, and the
+        # kernels of the whole stream by name
+        second = []
+
+        def replay_all():
+            bundle.reset()
+            second.clear()
+            for left, right in pairs:
+                second.append(bundle.step(left, right, K, bl, T))
+        _, per_run = kernel_counts(torch, replay_all)
+        if not all(torch.equal(a, b) for a, b in zip(outs, second)):
+            raise AssertionError(f"serving {label}: two replays differ")
+        want = {"fused_cost_base": 2 * frames, "softsplat": frames - 1}
+        if per_run != want:
+            raise AssertionError(f"serving {label}: the replayed stream ran "
+                                 f"{per_run}, not {want}")
+        steady_events, steady = kernel_counts(
+            torch, lambda: bundle.step(*pairs[0], K, bl, T))
+        if steady != {"fused_cost_base": 2, "softsplat": 1}:
+            raise AssertionError(f"serving {label}: a steady replay ran "
+                                 f"{steady}")
+        eager, prev = eager_stream(torch, port, serving, model, pairs, K, bl,
+                                   T)
+        eager_events, _ = kernel_counts(
+            torch, lambda: port.streaming_step(model, *pairs[0], prev, K, bl,
+                                               T))
+        rel = max_rel(torch, outs, eager)
+        equal = all(torch.equal(a, b) for a, b in zip(outs, eager))
+        if not rel <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"serving {label}: replays vs eager rel "
+                                 f"{rel:.3g} > {CARD_VS_CPU_TOL}")
+        steady_ms = 1e3 * sorted(secs[warm:])[len(secs[warm:]) // 2]
+        vs = ""
+        if base is None:
+            base = outs
+        else:
+            got, want = same_state(torch, port, serving, ref, model, pairs,
+                                   K, bl, T)
+            vs = ("; against the unfolded model (max|d|, mean|d| over "
+                  "mean|ref|, share > 3 px): each frame from its state "
+                  "%.3g, %.3g, %.4f; the free-running stream %.3g, %.3g, "
+                  "%.4f" % (agreement(torch, got[::4], want[::4])
+                            + agreement(torch, outs, base)))
+        log(8, f"serving flagship {label} v2s bf16 {h}x{w}: captured "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in
+                        bundle.capture_seconds.items())
+            + f"; {frames} replayed frames finite, vs eager rel {rel:.3g} "
+            f"(tol {CARD_VS_CPU_TOL}, bit-equal {equal}), two replays "
+            f"bit-identical{vs}; per-frame ms "
+            f"{[round(1e3 * x, 2) for x in secs]}, steady median "
+            f"{steady_ms:.2f} ms; a steady replay {steady_events} device "
+            f"events ({steady}), an eager steady frame {eager_events}; "
+            f"weights {weights / 2 ** 30:.3f} GiB, the graphs hold "
+            f"{held / 2 ** 30:.3f} GiB, peak {peak / 2 ** 30:.3f} GiB above "
+            f"the weights and the frames on {card}")
+        if label == "unfolded":
+            launches = {name: 0 for name in kernels.LAUNCHES}
+            launches.update(per_run)
+        del bundle, outs, second, eager, prev
+    del ref, model
+    phase_fold_tiny(torch, port, serving, fold_batch_norms)
+    return launches
+
+
+def phase_fold_tiny(torch, port, serving, fold_batch_norms):
+    """The tiny f32 model (TF32 off) with non-trivial BatchNorms, folded
+    against unfolded: each of three frames from the unfolded model's state
+    (gated), and the two free-running streams as replays (reported)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 96, 160
+    K, bl, T = _geometry(torch, h, w, "cuda", 30.0, 2.0)
+    pairs = seeded_frames(torch, 3, h, w, seed=10)
+    models = []
+    for fold in (False, True):
+        model = port.build_model(port.get_cfg(opts=TINY), seed=3)
+        randomize_batch_norms(torch, model, seed=11)
+        models.append(fold_batch_norms(model)[0] if fold else model)
+    rel = max_rel(torch, *same_state(torch, port, serving, *models, pairs,
+                                     K, bl, T))
+    if not rel < FOLD_TOL:
+        raise AssertionError(f"folded tiny model vs unfolded: rel {rel:.3g}")
+    runs = [serve(torch, serving, m, pairs, K, bl, T, i == 1)[1]
+            for i, m in enumerate(models)]
+    log(8, f"tiny {h}x{w} f32, folded vs unfolded: each of 3 frames from "
+        f"the unfolded state, max rel {rel:.3g} over the four disparities "
+        f"(tol {FOLD_TOL}); the free-running replayed streams (max|d|, "
+        "mean|d| over mean|ref|, share > 3 px) %.3g, %.3g, %.4f"
+        % agreement(torch, runs[1], runs[0]))
+
+
+def write_sequence(root, n, h, w, seed=12):
+    """n seeded stereo frames at the KITTI raw size, written with the
+    port's PNG codec, a ground truth of another size and matrix poses 0.5 m
+    apart."""
+    import numpy as np
+
+    from temporalstereo_tpu_torch.data.formats import write_kitti_disp
+    from temporalstereo_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    for sub in ("left", "right", "disp_gt"):
+        (root / sub).mkdir(parents=True)
+    rows = []
+    for i in range(n):
+        for sub in ("left", "right"):
+            write_png(str(root / sub / f"{i:06d}.png"),
+                      (rng.rand(h, w, 3) * 255).astype(np.uint8))
+        write_kitti_disp(str(root / "disp_gt" / f"{i:06d}.png"),
+                         rng.uniform(1, 60, (h, w)).astype(np.float32))
+        pose = np.eye(4)[:3]
+        pose[2, 3] = 0.5 * i
+        rows.append(" ".join(f"{v:.6f}" for v in pose.ravel()))
+    (root / "pose_left.txt").write_text("\n".join(rows) + "\n")
+
+
+def phase_cli(torch, port, card, frames=6):
+    """The video_inference CLI from a bundle at 384x1248 on PNG frames the
+    port's codec wrote (KITTI raw size, 375x1242)."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from temporalstereo_tpu_torch import serving
+    from temporalstereo_tpu_torch.data.png import read_png
+
+    repo = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = pathlib.Path(tmp)
+        write_sequence(tmp / "seq", frames, 375, 1242)
+        model = port.build_model(port.get_cfg(KITTI), seed=0)
+        serving.export_streaming_bundle(model, str(tmp / "bundle.json"), 1,
+                                        384, 1248, progress=lambda m: None)
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "temporalstereo_tpu_torch.cli."
+             "video_inference", "--config-file", KITTI, "--data-root",
+             str(tmp / "seq"), "--log-dir", str(tmp / "out"),
+             "--load-bundle", str(tmp / "bundle.json")],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"video_inference failed:\n{out.stderr}")
+        names = sorted(p.name for p in (tmp / "out").iterdir())
+        want = sorted([f"{i:06d}{s}.png" for i in range(frames)
+                       for s in ("", "_color")] + ["error.txt"])
+        if names != want:
+            raise AssertionError(f"video_inference wrote {names}")
+        for i in range(frames):
+            disp = read_png(str(tmp / "out" / f"{i:06d}.png"))
+            if disp.dtype != np.uint16 or disp.shape != (384, 1248):
+                raise AssertionError(f"frame {i}: {disp.dtype} {disp.shape}")
+        errors = (tmp / "out" / "error.txt").read_text().splitlines()
+        ms = [float(x) for x in re.findall(r": ([0-9.]+) ms", out.stdout)]
+        if len(errors) != frames + 1 or len(ms) != frames:
+            raise AssertionError(f"video_inference printed {out.stdout}")
+    log(8, f"video_inference --load-bundle 384x1248, {frames} PNG frames of "
+        f"375x1242: {len(names)} files, {errors[-1]}; per-frame ms {ms}; "
+        f"process wall {wall:.1f} s on {card}")
+
+
+def phase_bench(card):
+    """python -m temporalstereo_tpu_torch.bench: its JSON line."""
+    repo = pathlib.Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, "-m",
+                          "temporalstereo_tpu_torch.bench"], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench failed:\n{out.stderr}")
+    line = out.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    if not result["value"] > 0:
+        raise AssertionError(f"bench: {line}")
+    log(8, f"bench on {card}: {line}")
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -1000,6 +1335,9 @@ def main():
     launches["train"] = phase_flagship_train(torch, port, kernels, card)
     launches["train_block_cost_scale_0"] = phase_no_pyramid_train(
         torch, port, kernels)
+    launches["stream_graphs"] = phase_serving(torch, port, kernels, card)
+    phase_cli(torch, port, card)
+    phase_bench(card)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,7 +160,9 @@ def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
         k = 0
 
     down_K = _downscale_K(K, full_w / w)
-    down_inv_K = torch.linalg.inv(down_K)
+    # inv_ex: inv's check of the result would read it back to the host,
+    # which a CUDA graph cannot capture
+    down_inv_K = torch.linalg.inv_ex(down_K).inverse
     focal = down_K[:, 0, 0].reshape(-1, 1, 1, 1)
     pd = resize_bilinear(prev.prev_disp * (w / full_w), (h, w))
 

@@ -9,9 +9,13 @@ it is not used.)
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
+
+# fixed fractions on the device, made once per (fractions, type, device): a
+# CUDA graph cannot capture the host-to-device copy that makes them
+_FRACTIONS: Dict[tuple, torch.Tensor] = {}
 
 
 def topk_soft_argmin(cost: torch.Tensor, disp_sample: torch.Tensor,
@@ -55,7 +59,14 @@ def fractional_disparity_samples(low: torch.Tensor, high: torch.Tensor,
                                  ) -> torch.Tensor:
     """Hypotheses at fixed fractions of [low, high]: [B, H, W, 1] ->
     [B, H, W, len(fractions)]."""
-    fr = torch.tensor(fractions, dtype=low.dtype, device=low.device)
+    key = (tuple(fractions), low.dtype, low.device)
+    fr = _FRACTIONS.get(key)
+    if fr is None:
+        # a normal tensor even when first made under inference mode, so
+        # that autograd can use it later
+        with torch.inference_mode(False):
+            fr = _FRACTIONS[key] = torch.tensor(fractions, dtype=low.dtype,
+                                                device=low.device)
     span = torch.abs(high - low)
     base = torch.minimum(low, high)
     return base + span * fr.view(1, 1, 1, -1)
