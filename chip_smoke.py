@@ -49,10 +49,22 @@ non-zero exit code and no result line:
      (gated at 2e-3); the video_inference CLI from a
      bundle at 384x1248 on six PNG frames the port's codec wrote; the
      bench (python -m temporalstereo_tpu_torch.bench) and its JSON line;
-  9. one JSON line listing every kernel, then the result line.
+  9. evaluation: the tiny f32 model's eval metrics on the card against
+     the CPU (T=3); a synthetic KITTI 2015 multiview split (two samples of
+     11 frames of 375x1242 PNGs, both views' sparse ground truth, calib
+     and pose files) through the port's loader with forkserver process
+     workers and make_eval_step (configs/kitti2015-multi.yaml: v2s, bf16,
+     384x1248, B=1, T=11, occ/noc on): loader wait and synchronised step
+     time per sample, one sample's build time on one core, PNG decode
+     time (Up and Paeth rows), peak memory, every metric (finite, weight
+     = samples), launch counts, the cost-base and softsplat kernels of
+     one step by name under torch.profiler; then python -m
+     temporalstereo_tpu_torch.cli.kitti_submission on the same split;
+ 10. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -876,7 +888,8 @@ def phase_no_pyramid_train(torch, port, kernels):
 
 def profile(torch, phase, fn, repeats, unit):
     """Device busy share and kernel time by name over ``repeats`` calls of
-    ``fn`` (torch.profiler), each call one ``unit``."""
+    ``fn`` (torch.profiler), each call one ``unit`` -> ({name: (us,
+    launches)}, device events)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -907,6 +920,7 @@ def profile(torch, phase, fn, repeats, unit):
     for name, (t, n) in top[:20]:
         log(phase, f"  {t / repeats / 1e3:8.3f} ms/{unit} {n // repeats:5d}/"
             f"{unit}  {name[:100]}")
+    return by_name, len(kernels)
 
 
 def profile_stream(torch, port, cfg, h, w):
@@ -1191,6 +1205,7 @@ def phase_cli(torch, port, card, frames=6):
     port's codec wrote (KITTI raw size, 375x1242)."""
     import re
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -1247,6 +1262,254 @@ def phase_bench(card):
     if not result["value"] > 0:
         raise AssertionError(f"bench: {line}")
     log(8, f"bench on {card}: {line}")
+
+
+# the evaluation phase: the KITTI 2015 val path at full width
+EVAL_FRAMES = list(range(-10, 1))
+EVAL_SAMPLES = 2
+
+
+def _median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[n // 2]
+
+
+def decode_ms(read_png, write_png, path, tmp):
+    """Host ms to decode one of the split's 375x1242 RGB PNGs: as written
+    (row filter Up, the codec's default) and rewritten with Paeth rows, as
+    real KITTI files are."""
+    img = read_png(path)
+    paeth = str(tmp / "paeth.png")
+    write_png(paeth, img, filter_type=4)
+    return _median_ms(lambda: read_png(path), 5), \
+        _median_ms(lambda: read_png(paeth), 3)
+
+
+def eval_metrics_close(card_m, cpu_m, card_d, cpu_d, gt):
+    """Card against CPU: each EPE within the largest disparity difference
+    phase 4's tolerance allows (CARD_VS_CPU_TOL of the mean CPU
+    disparity), each outlier percentage within the pixels whose CPU error
+    lies that close to its threshold (a percentage is a step function);
+    -> the worst max|d| / mean|cpu| of the disparities."""
+    valid = (gt > 0) & (gt < 192)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card_d, cpu_d)):
+        scale = float(b.abs().mean()) + 1e-6
+        gap = float((a - b).abs()[valid].max())
+        worst = max(worst, gap / scale)
+        if not gap / scale < CARD_VS_CPU_TOL:
+            raise AssertionError(f"eval card vs CPU: disparity {i} "
+                                 f"{gap / scale:.3g}")
+        err = (gt - b).abs()
+        for key in [k for k in cpu_m if k.startswith(
+                f"metric_disparity_{i}/")]:
+            d = abs(float(card_m[key]) - float(cpu_m[key]))
+            stat = key.rsplit("_", 1)[1]
+            if stat == "epe":
+                limit = CARD_VS_CPU_TOL * scale
+            else:
+                px = int(stat[:-2])
+                near = ((err - px).abs() <= gap) & valid
+                limit = 100.0 * float(near.sum()) / float(valid.sum())
+            if not d <= limit + 1e-6:
+                raise AssertionError(f"eval card vs CPU: {key} {d:.3g} > "
+                                     f"{limit:.3g}")
+    for key in cpu_m:
+        if key.startswith("weight") and float(card_m[key]) != float(
+                cpu_m[key]):
+            raise AssertionError(f"eval card vs CPU: {key}")
+    return worst
+
+
+def phase_eval_card_vs_cpu(torch, port, tmp):
+    """The tiny f32 model's eval metrics on the card against the CPU: one
+    sample of T=3 at 96x160 from ground truth at 120x200, occ/noc on."""
+    from temporalstereo_tpu_torch.data import batch_to_device
+    from temporalstereo_tpu_torch.data import build_dataloader
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+    from temporalstereo_tpu_torch.ops import resize_bilinear
+    from temporalstereo_tpu_torch.training import make_eval_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ann = write_kitti2015_split(str(tmp), 1, [-2, -1, 0], 120, 200, seed=3)
+    cfg = port.get_cfg(KITTI, TINY_TRAIN + [
+        "DATA.VAL.DATA_ROOT", str(tmp), "DATA.VAL.ANNFILE", ann,
+        "DATA.VAL.HEIGHT", "96", "DATA.VAL.WIDTH", "160",
+        "DATA.VAL.FRAME_IDXS", "[-2, -1, 0]",
+        "DATA.VAL.PROCESS_WORKERS", "False",
+        "VAL.DO_OCCLUSION_EVALUATION", "True"])
+    batch = next(iter(build_dataloader(cfg.DATA.VAL, "val")))
+    gt = torch.from_numpy(batch["disp_gt"][-1])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = port.build_model(cfg, device=device, seed=3)
+        b = batch_to_device(batch, device)
+        metrics = make_eval_step(model, cfg)(b)
+        with torch.no_grad():
+            disps = port.multi_frame_forward(model, b)[0]["disps"]
+        disps = [resize_bilinear(d.float() * (gt.shape[2] / d.shape[2]),
+                                 gt.shape[1:3]).cpu() for d in disps]
+        runs[device] = ({k: v.cpu() for k, v in metrics.items()}, disps)
+    worst = eval_metrics_close(runs["cuda"][0], runs["cpu"][0],
+                               runs["cuda"][1], runs["cpu"][1], gt)
+    log(9, f"tiny f32 eval step T=3 96x160 (gt 120x200), card vs CPU: "
+        f"{len(runs['cpu'][0])} metrics within the allowance, disparities "
+        f"max|d|/mean|cpu| {worst:.3g} (tol {CARD_VS_CPU_TOL})")
+
+
+def phase_eval(torch, port, kernels, card):
+    """Phase 9: the KITTI 2015 val path at full width through the port's
+    loader and make_eval_step, then the kitti_submission CLI; -> the
+    launch counts of the eval loop."""
+    import re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from temporalstereo_tpu_torch.data import batch_to_device
+    from temporalstereo_tpu_torch.data import build_dataloader
+    from temporalstereo_tpu_torch.data.png import read_png, write_png
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+    from temporalstereo_tpu_torch.training import make_eval_step
+
+    t_phase = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        ann = write_kitti2015_split(str(tmp / "kitti"), EVAL_SAMPLES,
+                                    EVAL_FRAMES)
+        written = time.perf_counter() - t0
+        split = ["DATA.VAL.DATA_ROOT", str(tmp / "kitti"),
+                 "DATA.VAL.ANNFILE", ann, "DATA.VAL.FRAME_IDXS",
+                 str(EVAL_FRAMES), "VAL.DO_OCCLUSION_EVALUATION", "True"]
+        cfg = port.get_cfg(KITTI, split + ["DATA.VAL.PROCESS_WORKERS",
+                                           "True"])
+        loader = build_dataloader(cfg.DATA.VAL, "val")
+        batches = iter(loader)
+        waits, steps, totals, ready = [], [], {}, []
+        try:
+            # the workers start and build the first batch while the host
+            # checks the tiny model, measures the decode and builds the model
+            with ThreadPoolExecutor(1) as ahead:
+                t_start = time.perf_counter()
+                first = ahead.submit(next, batches, None)
+                first.add_done_callback(
+                    lambda f: ready.append(time.perf_counter()))
+                phase_eval_card_vs_cpu(torch, port, tmp / "tiny")
+                name = loader.dataset.data_list[0]["0"]["left_image_path"]
+                up_ms, paeth_ms = decode_ms(read_png, write_png,
+                                            str(tmp / "kitti" / name), tmp)
+                sample_ms = _median_ms(
+                    lambda: loader.dataset.getitem_seeded(0, 0), 1)
+                model = port.build_model(cfg, seed=0)
+                eval_step = make_eval_step(model, cfg)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2 ** 30
+                kernels.reset_launches()
+                t_wait = time.perf_counter()
+                batch = first.result()
+            while batch is not None:
+                waits.append(time.perf_counter() - t_wait)
+                t0 = time.perf_counter()
+                tb = batch_to_device(batch)
+                metrics = eval_step(tb)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                for k, v in metrics.items():
+                    totals.setdefault(k, []).append(float(v))
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+        finally:
+            loader.close()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        b = cfg.DATA.VAL.BATCH_SIZE
+        if len(steps) != EVAL_SAMPLES // b:
+            raise AssertionError(f"eval loader gave {len(steps)} batches")
+        bad = [k for k, v in totals.items()
+               if not all(map(math.isfinite, v))]
+        if bad:
+            raise AssertionError(f"eval metrics not finite: {bad}")
+        if sum(totals["weight"]) != EVAL_SAMPLES:
+            raise AssertionError(f"eval weight {totals['weight']} != "
+                                 f"{EVAL_SAMPLES} samples")
+        if not any(k.startswith("weight:") for k in totals):
+            raise AssertionError("eval: the occ/noc split did not run")
+        t = len(EVAL_FRAMES)
+        want = {"fused_cost_base": 2 * t * EVAL_SAMPLES, "softsplat":
+                (t - 1) * EVAL_SAMPLES}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"eval launches {launches}, want {want}")
+        by_name, events = profile(torch, 9, lambda: eval_step(tb), 1,
+                                  "sample")
+        by_kernel = {key: sum(n for name, (_, n) in by_name.items()
+                              if kernel in name)
+                     for key, kernel in (("fused_cost_base", COST_KERNEL),
+                                         ("softsplat", SPLAT_KERNEL))}
+        log(9, f"KITTI 2015 val v2s bf16 384x1248 B={b} T={t}, "
+            f"{EVAL_SAMPLES} samples of 375x1242 PNGs (split written in "
+            f"{written:.1f} s), {loader.num_workers} process workers (first "
+            f"batch {ready[0] - t_start:.1f} s after the pool's start, "
+            f"overlapping the tiny check and the model's build): loader "
+            f"wait per batch ms "
+            f"{[round(1e3 * w, 1) for w in waits]}, "
+            f"eval step ms (synchronised) "
+            f"{[round(1e3 * s, 1) for s in steps]}; one sample built on one "
+            f"core {sample_ms:.1f} ms; PNG decode per 375x1242 RGB image "
+            f"{up_ms:.1f} ms (Up rows) / {paeth_ms:.1f} ms (Paeth rows); "
+            f"peak memory {peak:.2f} GiB, {peak - held:.2f} GiB above the "
+            f"{held:.2f} GiB held before the loop (the model and what "
+            f"earlier phases keep); launches {launches} on {card}")
+        log(9, "eval metrics (mean over samples): " + ", ".join(
+            f"{k} {sum(v) / len(v):.4g}" for k, v in sorted(totals.items())))
+        log(9, f"torch.profiler, one eval step: {events} device events, "
+            f"{COST_KERNEL} {by_kernel['fused_cost_base']}, {SPLAT_KERNEL} "
+            f"{by_kernel['softsplat']} (expected {2 * t} and {t - 1}: two "
+            f"cost bases a frame, one splat a frame after the first)")
+        if by_kernel != {"fused_cost_base": 2 * t, "softsplat": t - 1}:
+            raise AssertionError(f"eval profiler counts {by_kernel}")
+        del model, eval_step, tb
+        torch.cuda.empty_cache()
+
+        test = ["DATA.TEST.DATA_ROOT", str(tmp / "kitti"),
+                "DATA.TEST.ANNFILE", ann, "DATA.TEST.FRAME_IDXS",
+                str(EVAL_FRAMES)]
+        out_dir = tmp / "submission"
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "temporalstereo_tpu_torch.cli."
+             "kitti_submission", "--config-file", KITTI, "--output-dir",
+             str(out_dir), *test], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"kitti_submission failed:\n{out.stderr}")
+        names = sorted(p.name for p in out_dir.iterdir())
+        if names != [f"{i:06d}_10.png" for i in range(EVAL_SAMPLES)]:
+            raise AssertionError(f"kitti_submission wrote {names}")
+        for name in names:
+            disp = read_png(str(out_dir / name))
+            if disp.dtype != np.uint16 or disp.shape != (384, 1248):
+                raise AssertionError(f"{name}: {disp.dtype} {disp.shape}")
+        ms = [float(x) for x in re.findall(r": ([0-9.]+) ms", out.stdout)]
+        p3 = re.findall(r"3PE=([0-9.]+)%", out.stdout)
+        if len(ms) != EVAL_SAMPLES or len(p3) != EVAL_SAMPLES or \
+                "average 3PE" not in out.stdout:
+            raise AssertionError(f"kitti_submission printed {out.stdout}")
+    log(9, f"kitti_submission 384x1248 T={t}: {len(names)} PNGs, 3PE "
+        f"{p3} %, forward ms per sample {ms}, process wall {wall:.1f} s "
+        f"on {card}")
+    log(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 KERNEL_SOURCES = {
@@ -1338,6 +1601,7 @@ def main():
     launches["stream_graphs"] = phase_serving(torch, port, kernels, card)
     phase_cli(torch, port, card)
     phase_bench(card)
+    launches["eval"] = phase_eval(torch, port, kernels, card)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

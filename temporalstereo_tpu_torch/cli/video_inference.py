@@ -18,8 +18,9 @@ Without a bundle flag each frame runs ``streaming_step`` eagerly (with
 ``--export-bundle`` writes the serving bundle (``serving.py``) and runs
 from it; ``--load-bundle`` runs from one written before: on a card every
 stage is a CUDA-graph replay.  The estimate is brought to the ground
-truth's resolution with the align-corners bilinear resize of
-``data/transforms.py`` (the JAX CLI uses Pillow's bilinear resize there).
+truth's resolution as the JAX CLI does: scaled by the width ratio, then
+resized by Pillow's bilinear filter (``transforms.resize_pil_bilinear``,
+numpy); the input frames take the align-corners resize.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def get_parser() -> argparse.ArgumentParser:
                         "(utils/fold_bn.py)")
     p.add_argument("--bf16-params", action="store_true",
                    help="store every weight as bf16 "
-                        "(serving.cast_params_bf16; bf16 models only)")
+                        "(serving.cast_params_bf16)")
     p.add_argument("--export-bundle", default="",
                    help="write a serving bundle (JSON) and run from it")
     p.add_argument("--load-bundle", default="",
@@ -83,7 +84,8 @@ def main(argv=None) -> None:
                                 load_tartanair_pose_file, sniff_pose_format,
                                 write_kitti_disp)
     from ..data.png import write_png
-    from ..data.transforms import normalize, resize_disparity, resize_image
+    from ..data.transforms import (normalize, resize_image,
+                                   resize_pil_bilinear)
     from ..models import (backbone_memory_shapes, build_model, init_prev_info,
                           resolve_device, streaming_step)
     from ..serving import (cast_params_bf16, export_streaming_bundle,
@@ -199,7 +201,10 @@ def main(argv=None) -> None:
         gt_path = _find_gt(gt_dir, stem)
         if gt_path:
             gt = load_disparity(gt_path)
-            est = resize_disparity(disp, gt.shape)
+            est = disp
+            if gt.shape != est.shape:
+                est = resize_pil_bilinear(est * (gt.shape[1] / est.shape[1]),
+                                          gt.shape)
             valid = ((gt > 0) & (gt < 192)).astype(np.float64)
             n = max(valid.sum(), 1.0)
             abs_err = np.abs(gt - est) * valid

@@ -1,23 +1,47 @@
 """Default configuration tree: the subset of the JAX package's
-``config/defaults.py`` that the port reads (``models.build_model`` and the
-training step: MODEL, the TRAIN data shape, TRAINER precision, clip and
-SWA, OPTIMIZER, SCHEDULER), with the same keys and default values.
+``config/defaults.py`` that the port reads (``models.build_model``, the
+training and evaluation steps, the datasets and loaders: MODEL, DATA,
+TRAINER precision, clip and SWA, OPTIMIZER, SCHEDULER, VAL), with the same
+keys and default values.
 """
 from __future__ import annotations
+
+import os
 
 from .config import ConfigNode as CN
 
 
 def get_default_config() -> CN:
     _C = CN()
+    _C.MAX_DISP = 192
     _C.FRAME_IDXS = [0, -1]
+    _C.LOG_DIR = os.path.join("./exps/")
+    _C.SEED = 43
 
     _C.DATA = CN()
-    _C.DATA.TRAIN = CN()
-    _C.DATA.TRAIN.HEIGHT = 512
-    _C.DATA.TRAIN.WIDTH = 960
-    _C.DATA.TRAIN.BATCH_SIZE = 8
-    _C.DATA.TRAIN.FRAME_IDXS = [0]
+    for phase, (h, w, bs, same_lr) in {
+        "TRAIN": (512, 960, 8, False),
+        "VAL": (544, 960, 4, True),
+        "TEST": (544, 960, 1, True),
+    }.items():
+        node = CN()
+        node.DATA_ROOT = os.path.join("./datasets/SceneFlow/Flyingthings3D")
+        node.TYPE = "SceneFlow"
+        node.ANNFILE = ("./splits/flyingthings3d/train.json"
+                        if phase == "TRAIN"
+                        else "./splits/flyingthings3d/test.json")
+        node.HEIGHT = h
+        node.WIDTH = w
+        node.USE_COMMON_INTRINSICS = True
+        node.DO_SAME_LR_TRANSFORM = same_lr
+        node.MEAN = (0.485, 0.456, 0.406)
+        node.STD = (0.229, 0.224, 0.225)
+        node.FRAME_IDXS = [0]
+        node.BATCH_SIZE = bs
+        node.NUM_WORKERS = 4
+        # forkserver process workers; False: a thread pool
+        node.PROCESS_WORKERS = True
+        _C.DATA[phase] = node
 
     _C.TRAINER = CN()
     _C.TRAINER.PRECISION = "bf16"  # "f32" | "bf16" (compute dtype policy)
@@ -96,6 +120,14 @@ def get_default_config() -> CN:
     # 4 levels: [full, 1/4-refined, 1/4, 1/8]
     _C.MODEL.LOSSES.SMOOTH_L1_LOSS.WEIGHTS = [2.0, 1.0, 0.7, 0.5]
     _C.MODEL.LOSSES.SMOOTH_L1_LOSS.SPARSE = False
+
+    _C.VAL = CN()
+    _C.VAL.VIS_INTERVAL = 8
+    _C.VAL.VIS_BATCH_INDEX = 4
+    _C.VAL.LOWERBOUND = 0
+    _C.VAL.UPPERBOUND = 192
+    _C.VAL.DO_OCCLUSION_EVALUATION = True
+    _C.VAL.EVAL_DISPARITY_IDS = [0, 1, 2, 3]
     return _C
 
 

@@ -1,9 +1,9 @@
-"""Image, disparity and pose files for the inference CLI.
+"""Image, disparity, depth, flow and pose files.
 
-Copies of the JAX package's ``data/formats.py`` readers that
-``cli/video_inference.py`` uses, in numpy and the standard library: images
-are PNG, read and written by the port's own codec (``data/png.py``), so no
-imaging package is needed.
+Copies of the JAX package's ``data/formats.py`` readers and writers, in
+numpy and the standard library: PNG files are read and written by the
+port's own codec (``data/png.py``), so no imaging package is needed for
+them.  Only ``load_image`` of another format (JPEG, ...) imports Pillow.
 """
 from __future__ import annotations
 
@@ -35,9 +35,80 @@ def load_pfm(path: str) -> Tuple[np.ndarray, float]:
     return np.ascontiguousarray(data, dtype=np.float32), abs(scale)
 
 
+def write_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
+    """[H, W] or [H, W, 3] -> a PFM file (bottom row first; a negative
+    scale marks little-endian data)."""
+    image = np.asarray(image, dtype=np.float32)
+    color = image.ndim == 3 and image.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
+        endian = image.dtype.byteorder
+        if endian == "<" or (endian == "=" and np.little_endian):
+            scale = -scale
+        f.write(f"{scale}\n".encode())
+        np.flipud(image).tofile(f)
+
+
+def _load_png16(path: str) -> np.ndarray:
+    return read_png(path).astype(np.float32)
+
+
 def load_kitti_disp(path: str) -> np.ndarray:
     """KITTI uint16 PNG disparity (value / 256, 0 = invalid)."""
-    return read_png(path).astype(np.float32) / 256.0
+    return _load_png16(path) / 256.0
+
+
+def load_kitti_depth(path: str) -> np.ndarray:
+    """KITTI uint16 PNG depth (value / 256, 0 = invalid)."""
+    return _load_png16(path) / 256.0
+
+
+def sceneflow_disp_to_depth(disp: np.ndarray, focal: float = 1050.0,
+                            baseline: float = 1.0) -> np.ndarray:
+    """SceneFlow depth = focal * baseline / disparity."""
+    return focal * baseline / np.maximum(disp, 1e-6)
+
+
+def load_npy_depth(path: str, scale: float = 100.0) -> np.ndarray:
+    """TartanAir .npy depth / ``scale``."""
+    return np.load(path).astype(np.float32) / scale
+
+
+def load_vkitti_depth(path: str) -> np.ndarray:
+    """Virtual KITTI 2 PNG depth in centimetres -> metres."""
+    return _load_png16(path) / 100.0
+
+
+def load_flo(path: str) -> np.ndarray:
+    """A Middlebury .flo file -> [H, W, 2] f32."""
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, count=1)[0]
+        assert magic == 202021.25, f"bad .flo magic in {path}"
+        w = int(np.fromfile(f, np.int32, count=1)[0])
+        h = int(np.fromfile(f, np.int32, count=1)[0])
+        data = np.fromfile(f, np.float32, count=2 * w * h)
+    return data.reshape(h, w, 2)
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """[H, W, 2] -> a Middlebury .flo file: f32 magic 202021.25, int32
+    width and height, interleaved u/v rows."""
+    assert flow.ndim == 3 and flow.shape[2] == 2, flow.shape
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        np.array([202021.25], np.float32).tofile(f)
+        np.array(w, np.int32).tofile(f)
+        np.array(h, np.int32).tofile(f)
+        flow.astype(np.float32).reshape(h, w * 2).tofile(f)
+
+
+def load_kitti_flow(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """KITTI 16-bit RGB PNG flow -> ((value - 2^15) / 64 [H, W, 2], valid
+    [H, W] from the third channel)."""
+    raw = _load_png16(path)
+    flow = (raw[..., :2] - 2 ** 15) / 64.0
+    return flow, raw[..., 2] > 0
 
 
 def write_kitti_disp(path: str, disp: np.ndarray) -> None:
@@ -109,6 +180,29 @@ def load_pose_file(path: str, invert: bool = True) -> np.ndarray:
     return poses.astype(np.float32)
 
 
+def load_sceneflow_camera_data(path: str) -> dict:
+    """SceneFlow ``camera_data.txt``: blocks ``Frame N`` / ``L <16
+    floats>`` / ``R <16 floats>``, world->cam -> {frame: {side: (T,
+    pinv(T))}}."""
+    data: dict = {}
+    frame = None
+    with open(path, "r") as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "Frame":
+                frame = int(parts[1])
+                data[frame] = {}
+            elif parts[0] in ("L", "R") and frame is not None:
+                T = np.array([float(v) for v in parts[1:]],
+                             np.float64).reshape(4, 4)
+                data[frame][parts[0].lower()] = (
+                    T.astype(np.float32),
+                    np.linalg.pinv(T).astype(np.float32))
+    return data
+
+
 def load_tartanair_pose_file(path: str) -> np.ndarray:
     """TartanAir poses, one ``x y z qx qy qz qw`` row per frame -> [N, 4, 4]
     world-to-cam in camera axes."""
@@ -137,8 +231,17 @@ def sniff_pose_format(path: str) -> str:
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG image -> RGB in [0, 1] f32 [H, W, 3]; gray is repeated to 3
-    channels and alpha dropped."""
+    """An image -> RGB in [0, 1] f32 [H, W, 3].  A PNG is read by the
+    port's codec (gray repeated to 3 channels, alpha dropped); any other
+    format by Pillow, converted to RGB."""
+    if not path.lower().endswith(".png"):
+        try:
+            from PIL import Image
+        except ImportError as exc:
+            raise ImportError(f"{path}: images other than PNG are read with "
+                              "Pillow, which is not installed") from exc
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"), dtype=np.float32) / 255.0
     raw = read_png(path)
     if raw.dtype != np.uint8:
         raise ValueError(f"{path}: 16-bit PNG is not an RGB image")

@@ -1,9 +1,10 @@
 """PNG read and write with the standard library's ``zlib`` and numpy.
 
 The port's image codec, so that it needs no imaging package: non-interlaced
-8-bit gray, gray + alpha, RGB and RGBA and 16-bit gray, all five row
-filters (PNG specification, section 9).  Anything else (palette, 16-bit
-colour, interlaced) raises ValueError.
+gray, gray + alpha, RGB and RGBA at 8 or 16 bits a sample (KITTI's flow
+files are 16-bit RGB), all five row filters (PNG specification, section
+9).  Anything else (palette, other bit depths, interlaced) raises
+ValueError.
 
 Reading undoes each row's filter.  The Sub, Average and Paeth filters make
 a byte depend on the reconstructed byte to its left, so where a row has
@@ -86,8 +87,7 @@ def _unfilter(filtered: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG file -> uint8 [H, W] / [H, W, C] or uint16 [H, W] (16-bit
-    gray)."""
+    """A PNG file -> uint8 or uint16 [H, W] (gray) / [H, W, C]."""
     with open(path, "rb") as fp:
         data = fp.read()
     if not data.startswith(SIGNATURE):
@@ -103,11 +103,10 @@ def read_png(path: str) -> np.ndarray:
     w, h, depth, color, _, _, interlace = header
     if interlace:
         raise ValueError(f"{path}: interlaced PNG is not supported")
-    if color not in _CHANNELS or depth not in (8, 16) or (
-            depth == 16 and color != 0):
+    if color not in _CHANNELS or depth not in (8, 16):
         raise ValueError(f"{path}: PNG of colour type {color} and bit depth "
-                         f"{depth} is not supported (8-bit gray, gray + "
-                         "alpha, RGB, RGBA and 16-bit gray are)")
+                         f"{depth} is not supported (gray, gray + alpha, "
+                         "RGB and RGBA at 8 or 16 bits are)")
     channels = _CHANNELS[color]
     bpp = channels * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -116,7 +115,7 @@ def read_png(path: str) -> np.ndarray:
                          f"{w}x{h}")
     pixels = _unfilter(raw.reshape(h, 1 + w * bpp), bpp)
     if depth == 16:
-        return pixels.reshape(h, w, 2).view(">u2")[..., 0].astype(np.uint16)
+        pixels = pixels.reshape(h, w, bpp).view(">u2").astype(np.uint16)
     return pixels[..., 0] if channels == 1 else pixels
 
 
@@ -150,24 +149,19 @@ def _filter(raw: np.ndarray, kind: int, bpp: int) -> np.ndarray:
 
 
 def write_png(path: str, image: np.ndarray, filter_type: int = 2) -> None:
-    """uint8 [H, W] / [H, W, 1|2|3|4] or uint16 [H, W] -> a PNG file, every
-    row with ``filter_type`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    """uint8 or uint16 [H, W] / [H, W, 1|2|3|4] -> a PNG file, every row
+    with ``filter_type`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
     image = np.asarray(image)
-    if image.dtype == np.uint16:
-        if image.ndim != 2:
-            raise ValueError("16-bit PNG is written for gray images only")
-        depth, channels = 16, 1
-        raw = image.astype(">u2").view(np.uint8).reshape(image.shape[0], -1)
-    elif image.dtype == np.uint8:
-        if image.ndim == 2:
-            image = image[..., None]
-        channels = image.shape[-1]
-        if image.ndim != 3 or channels not in _COLOR_TYPE:
-            raise ValueError(f"cannot write a PNG of shape {image.shape}")
-        depth = 8
-        raw = image.reshape(image.shape[0], -1)
-    else:
+    if image.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"PNG takes uint8 or uint16, not {image.dtype}")
+    if image.ndim == 2:
+        image = image[..., None]
+    channels = image.shape[-1]
+    if image.ndim != 3 or channels not in _COLOR_TYPE:
+        raise ValueError(f"cannot write a PNG of shape {image.shape}")
+    depth = 8 * image.dtype.itemsize
+    raw = image.astype(image.dtype.newbyteorder(">")).view(np.uint8).reshape(
+        image.shape[0], -1)
     h, w = image.shape[:2]
     bpp = channels * depth // 8
     body = zlib.compress(_filter(raw, filter_type, bpp).tobytes())

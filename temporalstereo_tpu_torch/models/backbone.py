@@ -54,8 +54,8 @@ TINY_GROUPS: Tuple[Tuple[StageSpec, ...], ...] = (
 class SqueezeExcite(nn.Module):
     def __init__(self, channels: int, rd_channels: int):
         super().__init__()
-        self.conv_reduce = nn.Conv2d(channels, rd_channels, 1, bias=True)
-        self.conv_expand = nn.Conv2d(rd_channels, channels, 1, bias=True)
+        self.conv_reduce = Conv2d(channels, rd_channels, 1, bias=True)
+        self.conv_expand = Conv2d(rd_channels, channels, 1, bias=True)
 
     def forward(self, x):
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -70,9 +70,9 @@ class EdgeResidual(nn.Module):
                  expand: int = 1):
         super().__init__()
         mid = in_ch * expand
-        self.conv_exp = nn.Conv2d(in_ch, mid, 3, stride, 1, bias=False)
+        self.conv_exp = Conv2d(in_ch, mid, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(mid)
-        self.conv_pwl = nn.Conv2d(mid, channels, 1, bias=False)
+        self.conv_pwl = Conv2d(mid, channels, 1, bias=False)
         self.bn2 = BatchNorm(channels)
         self.has_residual = stride == 1 and in_ch == channels
 
@@ -82,13 +82,13 @@ class EdgeResidual(nn.Module):
         return x + y if self.has_residual else y
 
 
-class Conv2dDW(nn.Conv2d):
+class Conv2dDW(Conv2d):
     """Depthwise 3x3 conv; its BN + SiLU are the block's ``bn2`` (the
     reference key layout keeps them beside the conv)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1):
         super().__init__(channels, channels, kernel_size, stride,
-                         kernel_size // 2, groups=channels, bias=False)
+                         kernel_size // 2, bias=False, groups=channels)
 
 
 class InvertedResidual(nn.Module):
@@ -101,13 +101,13 @@ class InvertedResidual(nn.Module):
         mid = in_ch * expand
         self.has_residual = stride == 1 and in_ch == channels
         self.mc = int(in_ch * memory_percent) if self.has_residual else 0
-        self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
+        self.conv_pw = Conv2d(in_ch, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
         self.conv_dw = Conv2dDW(mid, 3, stride)
         self.bn2 = BatchNorm(mid)
         self.se = (SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
                    if se_ratio > 0 else None)
-        self.conv_pwl = nn.Conv2d(mid, channels, 1, bias=False)
+        self.conv_pwl = Conv2d(mid, channels, 1, bias=False)
         self.bn3 = BatchNorm(channels)
 
     def forward(self, x, memory: Optional[torch.Tensor] = None,
@@ -137,7 +137,7 @@ class TemporalStereoBackbone(nn.Module):
                  norm: str = "BN", activation: str = "SiLU"):
         super().__init__()
         self.memory_percent = memory_percent
-        self.conv_stem = nn.Conv2d(3, STEM_CHANNELS, 3, 2, 1, bias=False)
+        self.conv_stem = Conv2d(3, STEM_CHANNELS, 3, 2, 1, bias=False)
         self.bn1 = BatchNorm(STEM_CHANNELS)
         in_ch = STEM_CHANNELS
         for gi, group in enumerate(groups):

@@ -99,11 +99,11 @@ class ConvexUpsample(nn.Module):
         super().__init__()
         self.up, self.win = upscale_factor, window_size
         self.mask = nn.Sequential(
-            nn.Conv2d(in_planes, 64, 3, 1, 1, bias=True),
+            Conv2d(in_planes, 64, 3, 1, 1, bias=True),
             BatchNorm(64),
             nn.SiLU(),
-            nn.Conv2d(64, window_size ** 2 * upscale_factor ** 2, 1,
-                      bias=True))
+            Conv2d(64, window_size ** 2 * upscale_factor ** 2, 1,
+                   bias=True))
 
     def forward(self, feat: torch.Tensor, disp: torch.Tensor,
                 disp_scale: Optional[float] = None) -> torch.Tensor:

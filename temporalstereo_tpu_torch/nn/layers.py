@@ -6,6 +6,11 @@ semantics, below) and an activation, so its ``state_dict`` keys are those of
 the reference implementation (``{prefix}.weight``, ``{prefix}.norm.*``).
 Unlike the JAX package, separable 3D kernels stay ``nn.Conv3d`` with (1,k,k)
 and (k,1,1) kernels: the JAX package folds depth into 2D convs for XLA.
+
+Every layer here takes a weight stored in bf16 (``serving.cast_params_bf16``)
+in the type of its input when that is not bf16 (``at_use``), as flax casts
+parameters to the compute type at each use: a model that computes in f32
+runs with bf16-stored weights.  In a bf16 model nothing is cast.
 """
 from __future__ import annotations
 
@@ -17,6 +22,15 @@ import torch.nn.functional as F
 
 Activation = Union[str, Sequence, None]
 BN_EPS = 1e-5
+
+
+def at_use(p: Optional[torch.Tensor], x: torch.Tensor
+           ) -> Optional[torch.Tensor]:
+    """A bf16-stored weight in ``x``'s type where ``x`` is not bf16; any
+    other weight as it is."""
+    if p is not None and p.dtype == torch.bfloat16 and x.dtype != p.dtype:
+        return p.to(x.dtype)
+    return p
 
 
 def get_activation(activation: Activation) -> Callable[[torch.Tensor],
@@ -75,9 +89,10 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             raise ValueError(f"expected [B, C, ...] input, got {x.dim()}D")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = at_use(self.weight, x), at_use(self.bias, x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             xf = x.detach().float()
@@ -88,8 +103,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
             self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
 
 def _norm(kind: Optional[str], channels: int) -> Optional[nn.Module]:
@@ -112,18 +126,26 @@ class _NormAct:
         return self.act(y)
 
 
-class Conv2d(nn.Conv2d, _NormAct):
+class _CastAtUse:
+    """A convolution that takes its weights ``at_use``."""
+
+    def _conv_forward(self, x, weight, bias):
+        return super()._conv_forward(x, at_use(weight, x), at_use(bias, x))
+
+
+class Conv2d(_CastAtUse, nn.Conv2d, _NormAct):
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=0, dilation=1, bias=True, norm=None, activation=None):
+                 padding=0, dilation=1, bias=True, norm=None, activation=None,
+                 groups=1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, dilation, bias=bias)
+                         padding, dilation, groups=groups, bias=bias)
         self._setup(norm, activation, out_channels)
 
     def forward(self, x):
         return self._post(super().forward(x))
 
 
-class Conv3d(nn.Conv3d, _NormAct):
+class Conv3d(_CastAtUse, nn.Conv3d, _NormAct):
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, dilation=1, bias=True, norm=None, activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
@@ -143,7 +165,9 @@ class ConvTranspose2d(nn.ConvTranspose2d, _NormAct):
         self._setup(norm, activation, out_channels)
 
     def forward(self, x):
-        return self._post(super().forward(x))
+        return self._post(F.conv_transpose2d(
+            x, at_use(self.weight, x), at_use(self.bias, x), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation))
 
 
 class ConvTranspose3d(nn.ConvTranspose3d, _NormAct):
@@ -155,4 +179,6 @@ class ConvTranspose3d(nn.ConvTranspose3d, _NormAct):
         self._setup(norm, activation, out_channels)
 
     def forward(self, x):
-        return self._post(super().forward(x))
+        return self._post(F.conv_transpose3d(
+            x, at_use(self.weight, x), at_use(self.bias, x), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation))

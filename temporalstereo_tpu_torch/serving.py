@@ -58,13 +58,9 @@ def cast_params_bf16(model: TemporalStereoNet) -> TemporalStereoNet:
     included, in place; buffers (BatchNorm's running statistics) and the
     carried geometry stay f32, as in the JAX package.  Inference only.
 
-    The JAX package casts bf16 weights up at each use; the port's layers
-    take their weights in the compute type, so the model must compute in
-    bf16 (TRAINER.PRECISION bf16), whose convolution weights are bf16
-    already."""
-    if model.dtype != torch.bfloat16:
-        raise ValueError("bf16 weights need a model that computes in bf16 "
-                         f"(TRAINER.PRECISION bf16), not {model.dtype}")
+    A model that computes in f32 takes each bf16 weight in f32 where it
+    uses it (``nn/layers.py:at_use``), as flax casts to the compute type;
+    in a bf16 model the convolution weights are bf16 already."""
     with torch.no_grad():
         for p in model.parameters():
             if p.is_floating_point():

@@ -6,9 +6,13 @@ layout that the JAX package's ``utils/torch_export.py`` writes (a
 Lightning ``.ckpt`` with a ``state_dict``) and that
 ``utils/convert.py:state_dict_from_jax`` produces: ``.ckpt``, ``.pth`` and
 ``.pt`` files of a state_dict, bare or under ``"state_dict"`` or
-``"model"``, loaded strictly.  Weights in the JAX package's own formats
-(msgpack, orbax) are converted first with
-``python -m temporalstereo_tpu.cli.export_reference``.
+``"model"``.  They merge as the JAX package's ``warm_start(strict=False)``
+does: a tensor whose name and shape match the model's is loaded, every
+other tensor of the model keeps its value, and the file's other entries
+are ignored.  (A 0-d entry stored as shape [1], as the exporter writes
+BatchNorm's ``num_batches_tracked``, matches: ``load_state_dict`` takes it
+so.)  Weights in the JAX package's own formats (msgpack, orbax)
+are converted first with ``python -m temporalstereo_tpu.cli.export_reference``.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ TORCH_EXTENSIONS = (".ckpt", ".pth", ".pt")
 
 
 def load_weights(model: nn.Module, path: str) -> int:
-    """Strict-load a torch checkpoint into ``model`` (in place) -> the number
-    of tensors loaded."""
+    """Merge a torch checkpoint into ``model`` (in place) -> the number of
+    its tensors loaded (those whose name and shape match)."""
     if not path.endswith(TORCH_EXTENSIONS):
         raise ValueError(
             f"{path}: the port loads {'/'.join(TORCH_EXTENSIONS)} "
@@ -31,5 +35,13 @@ def load_weights(model: nn.Module, path: str) -> int:
         sd = sd["state_dict"]
     if "model" in sd and isinstance(sd["model"], dict):
         sd = sd["model"]
-    model.load_state_dict(sd, strict=True)
-    return len(sd)
+    own = model.state_dict()
+
+    def fits(name, value):
+        target = own.get(name)
+        return (torch.is_tensor(value) and target is not None
+                and (value.shape == target.shape
+                     or (target.dim() == 0 and value.shape == (1,))))
+    matched = {k: v for k, v in sd.items() if fits(k, v)}
+    model.load_state_dict(matched, strict=False)
+    return len(matched)

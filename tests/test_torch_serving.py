@@ -162,7 +162,7 @@ def test_folded_model_matches_unfolded(jax_variables):
 
 def test_cast_params_bf16_matches_jax(jax_variables):
     """(c) Every parameter bf16 and bit-equal to the JAX cast; the running
-    statistics stay f32 and untouched."""
+    statistics stay f32 and untouched; in a bf16 and in an f32 model."""
     ref = state_dict_from_jax(jax_cast_bf16(jax_variables)["params"],
                               jax_variables["batch_stats"], TINY_GROUPS)
     model = cast_params_bf16(_port_model(jax_variables, BF16))
@@ -176,8 +176,13 @@ def test_cast_params_bf16_matches_jax(jax_variables):
         np.testing.assert_array_equal(v.float().numpy() if
                                       v.is_floating_point() else v.numpy(),
                                       want, err_msg=k)
-    with pytest.raises(ValueError, match="bf16"):
-        cast_params_bf16(_port_model(jax_variables))
+    # an f32 model takes the same cast (its layers take each weight in f32
+    # where they use it: tests/test_torch_faults.py)
+    f32 = cast_params_bf16(_port_model(jax_variables))
+    for k, v in f32.named_parameters():
+        assert v.dtype == torch.bfloat16, k
+        np.testing.assert_array_equal(v.detach().float().numpy(),
+                                      ref[k].numpy(), err_msg=k)
 
 
 def test_model_identity_hash():
