@@ -60,7 +60,21 @@ non-zero exit code and no result line:
      = samples), launch counts, the cost-base and softsplat kernels of
      one step by name under torch.profiler; then python -m
      temporalstereo_tpu_torch.cli.kitti_submission on the same split;
- 10. one JSON line listing every kernel, then the result line.
+ 10. training: python -m temporalstereo_tpu_torch.cli.train with
+     configs/kitti2015-multi.yaml at full width (v2s, bf16, B=4,
+     320x1184, T=11, 8 process workers; validation at 384x1248, B=1) on
+     a synthetic KITTI 2015 split of 8 train and 2 val samples: 2 epochs
+     with validation and a checkpoint each, SWA from half-way with its
+     BatchNorm re-estimate, a warm start from a .pth of the seeded model,
+     then test(); exact launch counts, checkpoints and finite tables; the
+     fit's step time against phase 6's, loader wait, checkpoint time and
+     size, SWA finish, eval time per sample, peak memory; a resume from
+     its checkpoints in this process for one more epoch (every restored
+     tensor bit-equal to the file, the step and the SWA count carried
+     on); one trainer step under torch.profiler; then
+     temporalstereo_tpu_torch.cli.sanity_train (v2s, bf16, 256x512, B=4,
+     150 steps), whose EPE must fall;
+ 11. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -86,6 +100,7 @@ NO_PYRAMID = ["MODEL.AGGREGATION.FINE.BLOCK_COST_SCALE", "0",
               "MODEL.AGGREGATION.PRECISE.BLOCK_COST_SCALE", "0"]
 TINY_TRAIN = TINY[:10]           # tiny, stage C=8, f32 over the YAML
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
+MEASURED = {}                   # numbers one phase hands to a later one
 # |kernel - plain| <= RTOL * |plain| + ATOL * max|plain of that block|
 COST_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 2 ** -8)}
 # the splat's kernel adds each target's taps in source order, the plain
@@ -843,6 +858,7 @@ def phase_flagship_train(torch, port, kernels, card, steps=3):
     lr = cfg.OPTIMIZER.RMSPROP.LR
     launches, secs, deltas, moved, metrics = _run_training(
         torch, port, kernels, cfg, steps, profile_phase=6)
+    MEASURED["train_step_s"] = secs
     want = {"fused_cost_base": 2 * t * steps,
             "fused_cost_base_backward": 2 * steps, "shift_1d": 0,
             "shift_1d_backward": 0, "softsplat": (t - 1) * steps}
@@ -1512,6 +1528,251 @@ def phase_eval(torch, port, kernels, card):
     return launches
 
 
+# the fit phase: the training entry point at full width
+FIT_TRAIN_SAMPLES = 8           # 2 steps an epoch at the YAML's B=4
+FIT_VAL_SAMPLES = 2
+FIT_EPOCHS = 2
+SANITY_STEPS = 150             # the JAX CLI's default is 1000
+
+
+def _train_summary(text):
+    """The JSON of the ``train summary:`` line a trainer's log ends with."""
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("train summary: ")]
+    if not lines:
+        raise AssertionError(f"no train summary in:\n{text[-4000:]}")
+    return json.loads(lines[-1][len("train summary: "):])
+
+
+def _fit_launches(t, steps, evals, forwards):
+    """Launches of ``steps`` train steps, ``evals`` eval samples and
+    ``forwards`` other no-gradient windows (SWA batches, image logs) of
+    a T-frame window: two cost bases a frame, one splat a frame after the
+    first, the cost base's backward twice a step."""
+    windows = steps + evals + forwards
+    return {"fused_cost_base": 2 * t * windows,
+            "fused_cost_base_backward": 2 * steps, "shift_1d": 0,
+            "shift_1d_backward": 0, "softsplat": (t - 1) * windows}
+
+
+def _ms(summary, key):
+    return [round(1e3 * x, 1) for x in summary.get(key, {}).get("all", [])]
+
+
+def _leaves(tree):
+    """The leaves of a nested dict / tuple / list, dict keys in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_fit(torch, port, kernels, card):
+    """Phase 10: python -m temporalstereo_tpu_torch.cli.train on
+    configs/kitti2015-multi.yaml at full width (a subprocess: fit, then
+    test); a resume from its checkpoints in this process (restored
+    tensors bit-equal, the step and the SWA count carried on); one
+    profiled trainer step; then cli.sanity_train.  -> the launch counts
+    of the CLI's run and of the resumed fit."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+    from temporalstereo_tpu_torch.training.checkpoint import (
+        CheckpointManager, save_weights)
+    from temporalstereo_tpu_torch.training.trainer import Trainer, _host
+
+    t_phase = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    cfg0 = port.get_cfg(KITTI)
+    t = len(cfg0.DATA.TRAIN.FRAME_IDXS)
+    b = cfg0.DATA.TRAIN.BATCH_SIZE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        train_ann = write_kitti2015_split(str(tmp / "train"),
+                                          FIT_TRAIN_SAMPLES, EVAL_FRAMES)
+        val_ann = write_kitti2015_split(str(tmp / "val"), FIT_VAL_SAMPLES,
+                                        EVAL_FRAMES, seed=1)
+        written = time.perf_counter() - t0
+        weights = str(tmp / "seeded.pth")
+        model = port.build_model(cfg0, seed=0)
+        save_weights(weights, *port.master_copies(model))
+        del model
+        torch.cuda.empty_cache()
+        opts = ["LOG_DIR", str(tmp / "exps"),
+                "TRAINER.MAX_EPOCHS", str(FIT_EPOCHS),
+                "TRAINER.CHECK_VAL_EVERY_N_EPOCHS", "1",
+                "CHECKPOINT.EVERY_N_EPOCHS", "1",
+                "TRAINER.SWA.START_FRACTION", "0.5",
+                "TRAINER.LOAD_FROM_CHECKPOINT", weights,
+                "TRAINER.FLUSH_LOGS_EVERY_N_STEPS", "1",
+                "TRAINER.LOG_EVERY_N_STEPS", "1",
+                "DATA.TRAIN.DATA_ROOT", str(tmp / "train"),
+                "DATA.TRAIN.ANNFILE", train_ann]
+        for phase in ("VAL", "TEST"):
+            opts += [f"DATA.{phase}.DATA_ROOT", str(tmp / "val"),
+                     f"DATA.{phase}.ANNFILE", val_ann]
+
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "temporalstereo_tpu_torch.cli.train",
+             "--config-file", KITTI, *opts], cwd=repo, capture_output=True,
+            text=True, timeout=900)
+        cli_wall = time.perf_counter() - t0
+        (tmp / "fit.log").write_text(out.stdout + out.stderr)
+        if out.returncode != 0:
+            raise AssertionError(f"cli.train failed ({out.returncode}):\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+        cli = _train_summary(out.stdout)
+        steps = FIT_EPOCHS * FIT_TRAIN_SAMPLES // b
+        swa_batches = min(FIT_TRAIN_SAMPLES // b,
+                          cfg0.TRAINER.SWA.BN_UPDATE_STEPS)
+        want = _fit_launches(t, steps, (FIT_EPOCHS + 1) * FIT_VAL_SAMPLES,
+                             swa_batches + FIT_EPOCHS + 1)
+        if cli["launches"] != want:
+            raise AssertionError(f"cli.train launches {cli['launches']} != "
+                                 f"{want}")
+        n_warm = re.findall(r"warm-started (\d+) tensors", out.stdout)
+        val = re.findall(r"disparity_0/all +([-0-9. ]+)", out.stdout)
+        if cli["step"] != steps or not n_warm or len(val) != FIT_EPOCHS + 1:
+            raise AssertionError(f"cli.train: step {cli['step']}, warm "
+                                 f"start {n_warm}, tables {val}")
+        if not all(math.isfinite(float(x)) for row in val
+                   for x in row.split()):
+            raise AssertionError(f"cli.train: non-finite tables {val}")
+        exp = tmp / "exps" / cfg0.TRAINER.NAME / cfg0.TRAINER.VERSION
+        ckpt_dir = str(exp / "checkpoints")
+        saved_steps = CheckpointManager(ckpt_dir).all_steps()
+        if saved_steps != [steps // FIT_EPOCHS * (e + 1)
+                           for e in range(FIT_EPOCHS)] or \
+                not (exp / "weights_final.pth").exists():
+            raise AssertionError(f"cli.train checkpoints {saved_steps}")
+        bare = MEASURED["train_step_s"][1:]
+        fit_steps = cli["step_s"]["all"]
+        log(10, f"cli.train kitti2015-multi v2s bf16 B={b} "
+            f"{cfg0.DATA.TRAIN.HEIGHT}x{cfg0.DATA.TRAIN.WIDTH} T={t}, "
+            f"{FIT_TRAIN_SAMPLES} train + {FIT_VAL_SAMPLES} val samples "
+            f"(split written in {written:.1f} s), {FIT_EPOCHS} epochs of "
+            f"{steps // FIT_EPOCHS} steps, {cfg0.DATA.TRAIN.NUM_WORKERS} "
+            f"process workers: warm start {n_warm[0]} tensors, SWA "
+            f"{cli['swa_count']} snapshots, checkpoints {saved_steps}; "
+            f"process wall {cli_wall:.1f} s on {card}")
+        log(10, f"fit step ms (synchronised by the loss read-back) "
+            f"{_ms(cli, 'step_s')} against phase 6's bare step ms "
+            f"{[round(1e3 * x, 1) for x in bare]} (median ratio "
+            f"{np.median(fit_steps[1:]) / np.median(bare):.3f} after the "
+            f"first); loader wait per step ms {_ms(cli, 'loader_wait_s')}; "
+            f"checkpoint save ms {_ms(cli, 'checkpoint_s')} of "
+            f"{[round(x, 1) for x in cli['checkpoint_mb']['all']]} MB; SWA "
+            f"finish ms {_ms(cli, 'swa_finish_s')}; val and test ms per "
+            f"sample {_ms(cli, 'val_sample_s')}; peak memory "
+            f"{cli['peak_gib']:.2f} GiB; launches {cli['launches']}")
+        log(10, "val tables (disparity_0/all: 1px 2px 3px 5px epe): "
+            + "; ".join(" ".join(row.split()) for row in val))
+
+        # resume for one more epoch in this process; its SWA finish skips
+        # the BatchNorm pass (one more loader epoch) that the CLI ran
+        resume = port.get_cfg(KITTI, opts + [
+            "TRAINER.MAX_EPOCHS", "1",
+            "TRAINER.SWA.BN_UPDATE_STEPS", "0",
+            "TRAINER.RESUME_FROM_CHECKPOINT", ckpt_dir])
+        saved = CheckpointManager(ckpt_dir).read()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(resume)
+        try:
+            state = trainer.state
+            pairs = [(saved[part], getattr(state, part))
+                     for part in ("params", "batch_stats", "swa_params")]
+            unequal = [k for a, r in pairs for k in a
+                       if not torch.equal(a[k].cuda(), r[k])]
+            opt_saved = _leaves(saved["opt_state"])
+            opt_restored = _leaves(state.opt_state)
+            if len(opt_saved) != len(opt_restored) or not opt_saved:
+                raise AssertionError(f"resume: {len(opt_restored)} optimizer "
+                                     f"leaves, {len(opt_saved)} saved")
+            unequal += [f"opt_state leaf {i}" for i, (a, r) in enumerate(
+                zip(opt_saved, opt_restored))
+                if not (torch.equal(a.cuda(), r) if torch.is_tensor(a)
+                        else a == r)]
+            if unequal or state.step != saved["step"] or \
+                    state.swa_count != saved["swa_count"]:
+                raise AssertionError(f"resume: {len(unequal)} tensors "
+                                     f"differ ({unequal[:3]}), step "
+                                     f"{state.step} vs {saved['step']}")
+            trainer.fit()
+        finally:
+            trainer.close()
+        resume_wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        summary = trainer.summary()
+        resumed_steps = FIT_TRAIN_SAMPLES // b
+        if trainer.state.step != saved["step"] + resumed_steps:
+            raise AssertionError(f"resume: step {trainer.state.step}")
+        want = _fit_launches(t, resumed_steps, FIT_VAL_SAMPLES, 1)
+        if launches != want:
+            raise AssertionError(f"resumed fit launches {launches} != {want}")
+        if trainer.state.swa_count != saved["swa_count"] + resumed_steps:
+            raise AssertionError(
+                f"resume: SWA count {trainer.state.swa_count}")
+        log(10, f"resume from step {saved['step']}: {len(pairs[0][0])} "
+            f"parameters, {len(pairs[1][0])} statistics, the SWA average "
+            f"and the {len(opt_saved)} leaves of the optimizer state "
+            f"bit-equal to the checkpoint; step "
+            f"{trainer.state.step} and {trainer.state.swa_count} SWA "
+            f"snapshots after one more epoch; step ms "
+            f"{_ms(summary, 'step_s')}, loader wait ms "
+            f"{_ms(summary, 'loader_wait_s')}, val ms per sample "
+            f"{_ms(summary, 'val_sample_s')}; {resume_wall:.1f} s; "
+            f"launches {launches}")
+
+        # one trainer step (the step, the loss and metrics read-backs)
+        # under the profiler, on a window of the flagship's shapes
+        batch = train_batch(torch, t, b, cfg0.DATA.TRAIN.HEIGHT,
+                            cfg0.DATA.TRAIN.WIDTH, "cuda")
+        box = {"state": trainer.state}
+
+        def trainer_step():
+            box["state"], metrics = trainer.train_step(box["state"], batch)
+            float(metrics["loss"])
+            _host(metrics)
+        trainer_step()
+        by_name, events = profile(torch, 10, trainer_step, 1, "step")
+        del trainer, box, batch
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "temporalstereo_tpu_torch.cli.sanity_train", "--steps",
+             str(SANITY_STEPS)], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        sanity_wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"sanity_train failed:\n{out.stderr[-6000:]}")
+        before = re.findall(r"EPE before training: ([0-9.]+) px", out.stdout)
+        after = re.findall(r"EPE after training: train-batch ([0-9.]+) px, "
+                           r"held-out ([0-9.]+) px", out.stdout)
+        rate = re.findall(r"steps in ([0-9.]+)s", out.stdout)
+        # the CLI's own criterion: the train-batch EPE at least halved
+        if not before or not after or "SANITY PASS" not in out.stdout or \
+                not float(after[0][0]) < 0.5 * float(before[0]):
+            raise AssertionError(f"sanity_train EPE did not halve:\n"
+                                 f"{out.stdout[-3000:]}")
+        log(10, f"sanity_train v2s bf16 256x512 B=4, 8 batches, "
+            f"{SANITY_STEPS} steps in {rate[0]} s: EPE {before[0]} -> "
+            f"{after[0][0]} px (held-out {after[0][1]} px); "
+            f"{out.stdout.strip().splitlines()[-1]}; process wall "
+            f"{sanity_wall:.1f} s")
+    log(10, f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return cli["launches"], launches
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -1602,6 +1863,8 @@ def main():
     phase_cli(torch, port, card)
     phase_bench(card)
     launches["eval"] = phase_eval(torch, port, kernels, card)
+    launches["fit"], launches["fit_resume"] = phase_fit(torch, port,
+                                                        kernels, card)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Default configuration tree: the subset of the JAX package's
 ``config/defaults.py`` that the port reads (``models.build_model``, the
-training and evaluation steps, the datasets and loaders: MODEL, DATA,
-TRAINER precision, clip and SWA, OPTIMIZER, SCHEDULER, VAL), with the same
-keys and default values.
+training and evaluation steps, the datasets and loaders, the trainer:
+MODEL, DATA, CHECKPOINT, TRAINER, TPU.HOST_PREFETCH, OPTIMIZER, SCHEDULER,
+VAL), with the same keys and default values.
 """
 from __future__ import annotations
 
@@ -43,14 +43,35 @@ def get_default_config() -> CN:
         node.PROCESS_WORKERS = True
         _C.DATA[phase] = node
 
+    _C.CHECKPOINT = CN()
+    _C.CHECKPOINT.EVERY_N_TRAIN_STEPS = 0
+    _C.CHECKPOINT.EVERY_N_EPOCHS = 1
+    _C.CHECKPOINT.KEEP = -1  # keep all
+
     _C.TRAINER = CN()
+    _C.TRAINER.NAME = "TemporalStereo"
+    _C.TRAINER.VERSION = "default"
+    _C.TRAINER.MAX_EPOCHS = 10
+    _C.TRAINER.MIN_EPOCHS = 1
     _C.TRAINER.PRECISION = "bf16"  # "f32" | "bf16" (compute dtype policy)
     _C.TRAINER.GRADIENT_CLIP_VAL = 0.1
+    _C.TRAINER.LOG_EVERY_N_STEPS = 50
+    _C.TRAINER.FLUSH_LOGS_EVERY_N_STEPS = 100
+    # train-batch image dumps every N steps; 0 disables
+    _C.TRAINER.VIS_EVERY_N_TRAIN_STEPS = 2000
+    _C.TRAINER.CHECK_VAL_EVERY_N_EPOCHS = 1
+    _C.TRAINER.RESUME_FROM_CHECKPOINT = ""
+    _C.TRAINER.LOAD_FROM_CHECKPOINT = ""
+    _C.TRAINER.FAST_DEV_RUN = False
     _C.TRAINER.SWA = CN()
     _C.TRAINER.SWA.ENABLED = True
     _C.TRAINER.SWA.START_FRACTION = 0.8
     _C.TRAINER.SWA.LR = 0.0  # 0 => keep scheduler lr
     _C.TRAINER.SWA.BN_UPDATE_STEPS = 50
+
+    # batches copied to the card ahead of the running step; 0 disables
+    _C.TPU = CN()
+    _C.TPU.HOST_PREFETCH = 2
 
     _C.OPTIMIZER = CN()
     _C.OPTIMIZER.TYPE = "RMSProp"
@@ -86,6 +107,8 @@ def get_default_config() -> CN:
     _C.MODEL.BACKBONE.MEMORY_PERCENT = 1 / 8
     _C.MODEL.BACKBONE.NORM = "BN"
     _C.MODEL.BACKBONE.ACTIVATION = "SiLU"
+    # a timm EfficientNetV2 state_dict (.pth) warm-starting the trunk
+    _C.MODEL.BACKBONE.PRETRAINED = ""
 
     _C.MODEL.AGGREGATION = CN()
     for stage, (planes, c, nsample) in {

@@ -20,7 +20,8 @@ from the seed ``(seed + 100003 * e) * 131071 + i``, whatever the shard,
 batch or worker.
 
 ``batch_to_device`` moves a numpy batch to the card (or, when asked, the
-CPU) as tensors.
+CPU) as tensors; ``prefetch_to_device`` keeps the next batches' copies in
+flight while a step runs.
 """
 from __future__ import annotations
 
@@ -82,6 +83,55 @@ def batch_to_device(batch: Dict[str, np.ndarray], device=None
     device = resolve_device(device)
     return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None):
+    """Iterate ``(device_batch, host_batch)`` with ``size`` batches' copies
+    to the card in flight ahead of the consumer (the JAX package's
+    ``parallel/mesh.py:prefetch_to_device``).
+
+    On the card each batch is pinned, copied ``non_blocking`` on a side
+    stream, and the consumer's stream waits for that copy's event before
+    the batch is yielded; ``record_stream`` keeps the caching allocator
+    from reusing a batch's memory while the consumer's work on it is
+    queued.  On the CPU it is ``batch_to_device``, one batch at a time.
+    """
+    from ..models import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda" or size <= 0:
+        for host in iterator:
+            yield batch_to_device(host, device), host
+        return
+    copies = torch.cuda.Stream(device)
+    pending: deque = deque()
+    it = iter(iterator)
+
+    def enqueue() -> bool:
+        host = next(it, None)
+        if host is None:
+            return False
+        pinned = {k: torch.from_numpy(np.asarray(v)).pin_memory()
+                  for k, v in host.items()}
+        with torch.cuda.stream(copies):
+            dev = {k: t.to(device, non_blocking=True)
+                   for k, t in pinned.items()}
+            done = torch.cuda.Event()
+            done.record(copies)
+        pending.append((dev, host, done))
+        return True
+
+    for _ in range(size):
+        if not enqueue():
+            break
+    while pending:
+        dev, host, done = pending.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        for t in dev.values():
+            t.record_stream(consumer)
+        enqueue()
+        yield dev, host
 
 
 class DataLoader:

@@ -43,7 +43,7 @@ def compute_losses(outputs, disp_gt: torch.Tensor,
 
 
 @torch.no_grad()
-def _load_working_copy(model: TemporalStereoNet, state: TrainState) -> None:
+def load_working_copy(model: TemporalStereoNet, state: TrainState) -> None:
     """The model's parameters and statistics <- the state's f32 masters,
     each cast to the type the model keeps it in."""
     for name, p in model.named_parameters():
@@ -86,7 +86,7 @@ def make_train_step(model: TemporalStereoNet, cfg: ConfigNode,
         return losses
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        _load_working_copy(model, state)
+        load_working_copy(model, state)
         model.zero_grad(set_to_none=True)
         losses = losses_of(batch)
         losses["loss"].backward()
