@@ -74,7 +74,30 @@ non-zero exit code and no result line:
      on); one trainer step under torch.profiler; then
      temporalstereo_tpu_torch.cli.sanity_train (v2s, bf16, 256x512, B=4,
      150 steps), whose EPE must fall;
- 11. one JSON line listing every kernel, then the result line.
+ 11. the demo: python -m temporalstereo_tpu_torch.cli.demo (run in this
+     process) with configs/kitti2015-multi.yaml at 384x1248 over a
+     synthetic KITTI 2015 split of two 11-frame samples: a panel PNG a
+     sample of the expected shape, finite EPE and 3PE, exact launch
+     counts;
+ 12. the tools: cli.benchmark_ops at KITTI sizes (its JSON line: device
+     time per op beside the reference's own figures, labelled with the
+     reference's hardware) and cli.profile_step --temporal --train (its
+     top kernels, the scopes and the device busy share; 2 steps, not its
+     default 6), each in its own process, with the launches they print;
+ 13. TPU.REMAT: the kitti2015-multi BPTT step (MODEL.PREVIOUS_WITH_GRADIENT,
+     v2s, bf16, B=4, 320x1184) at T=3 with and without REMAT from the
+     same weights and batch (the same loss; gradients within the stated
+     bf16 tolerance of each other, beside two plain runs' own spread;
+     BatchNorm statistics equal; step time and peak memory of both), then
+     at T=11 with REMAT only (step time, peak memory);
+ 14. the planner: serving.measure_latency_table of the flagship bundle
+     (v2s, bf16, 384x1248) for 1, 2, 4 and 8 streams and chunks of 1, 2
+     and 8 frames, its LatencyModel fit, then python -m
+     temporalstereo_tpu_torch.cli.video_inference --target-fps 30
+     --streams 4 against that table with --export-bundle (the operating
+     point it prints equal to select_operating_point's, and recorded in
+     the bundle's meta);
+ 15. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -1773,6 +1796,329 @@ def phase_fit(torch, port, kernels, card):
     return cli["launches"], launches
 
 
+# the phases of the remaining tools, TPU.REMAT and the planner
+DEMO_SAMPLES = 2
+PROFILE_ITERS = 2               # profile_step's default is 6
+REMAT_T = 3
+# REMAT against the plain BPTT step, all gradients together (L2 over
+# every tensor): ||remat - plain|| <= REMAT_GRAD_TOL * ||plain' - plain||,
+# plain' a second plain run.  The forward is deterministic (the loss and
+# the BatchNorm statistics are required bit-equal); the backward is not:
+# the card's unordered bf16 sums put two plain runs ~4% apart in L2 and a
+# tensor up to twice its largest gradient apart (H100, this phase), so
+# REMAT is held to that spread, with a factor of 2 for its own draw of it
+REMAT_GRAD_TOL = 2.0
+PLANNER_STREAMS = (1, 2, 4, 8)
+PLANNER_CHUNKS = (1, 2, 8)
+
+
+def quiet_main(main, argv):
+    """A CLI's ``main(argv)`` in this process, its standard output kept ->
+    (its return value, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    return result, buf.getvalue()
+
+
+def phase_demo(torch, port, kernels, card):
+    """Phase 11: the demo CLI over a synthetic KITTI 2015 split."""
+    import tempfile
+
+    from temporalstereo_tpu_torch.cli import demo
+    from temporalstereo_tpu_torch.data.png import read_png
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+
+    t_phase = time.perf_counter()
+    cfg = port.get_cfg(KITTI)
+    h, w, t = cfg.DATA.VAL.HEIGHT, cfg.DATA.VAL.WIDTH, len(EVAL_FRAMES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ann = write_kitti2015_split(str(tmp / "kitti"), DEMO_SAMPLES,
+                                    EVAL_FRAMES)
+        opts = ["DATA.VAL.DATA_ROOT", str(tmp / "kitti"), "DATA.VAL.ANNFILE",
+                ann, "DATA.VAL.FRAME_IDXS", str(EVAL_FRAMES)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary, text = quiet_main(demo.main, [
+            "--config-file", KITTI, "--output-dir", str(tmp / "demo"),
+            *opts])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for line in text.strip().splitlines():
+            log(11, f"demo: {line}")
+        names = sorted(p.name for p in (tmp / "demo").iterdir())
+        if names != [f"demo_{i:04d}.png" for i in range(DEMO_SAMPLES)]:
+            raise AssertionError(f"demo wrote {names}")
+        shapes = [read_png(str(tmp / "demo" / n)).shape for n in names]
+    if summary["samples"] != DEMO_SAMPLES or shapes != [(3 * h, w, 3)] * 2:
+        raise AssertionError(f"demo: {summary['samples']} samples, panels "
+                             f"{shapes}, want {DEMO_SAMPLES} of "
+                             f"{(3 * h, w, 3)}")
+    errors = summary["epe"] + summary["3px"]
+    if len(errors) != 2 * DEMO_SAMPLES or not all(map(math.isfinite, errors)):
+        raise AssertionError(f"demo: EPE/3PE not finite: {summary}")
+    want = {"fused_cost_base": 2 * t * DEMO_SAMPLES,
+            "fused_cost_base_backward": 0, "shift_1d": 0,
+            "shift_1d_backward": 0, "softsplat": (t - 1) * DEMO_SAMPLES}
+    if launches != want or summary["launches"] != want:
+        raise AssertionError(f"demo launches {launches}, want {want}")
+    log(11, f"demo kitti2015-multi v2s bf16 {h}x{w} T={t}, {DEMO_SAMPLES} "
+        f"samples of 375x1242 PNGs: panels {shapes[0]}, EPE "
+        f"{summary['epe']} 3PE {summary['3px']} % (random weights), "
+        f"ms per sample (synchronised forward) {summary['ms_per_sample']}, "
+        f"launches {launches}; the CLI's call {wall:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def run_cli(module, args, timeout=600):
+    """``python -m temporalstereo_tpu_torch.cli.<module> args`` in its own
+    process (its own CUDA context and profiler) -> its standard output;
+    raises if it fails."""
+    repo = pathlib.Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-m", f"temporalstereo_tpu_torch.cli.{module}",
+         *args], cwd=repo, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} failed:\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def phase_tools(card):
+    """Phase 12: benchmark_ops and profile_step --temporal --train, each
+    in its own process, as a user runs them (in a process that has
+    already profiled for minutes, a new profiler session recorded few
+    device events on an H100) -> their launches, as they print them."""
+    t_phase = time.perf_counter()
+    line = run_cli("benchmark_ops", []).strip().splitlines()[-1]
+    result = json.loads(line)
+    bench = result["launches"]
+    bad = [k for k, v in result["ops"].items()
+           if not (math.isfinite(v["ms"]) and v["ms"] > 0)]
+    if bad or not bench["fused_cost_base"] or not bench["softsplat"]:
+        raise AssertionError(f"benchmark_ops: ops {bad}, launches {bench}")
+    log(12, f"benchmark_ops JSON: {line}")
+    for name, op in result["ops"].items():
+        ref = op["reference"]
+        log(12, f"  {name} {op['shape']}: {op['ms']:.4f} ms device on "
+            f"{card}" + (f"; {ref['ms']} ms on {ref['hardware']}" if ref
+                         else ""))
+    text = run_cli("profile_step", ["--temporal", "--train", "--top", "10",
+                                    "--iters", str(PROFILE_ITERS)])
+    last = text.strip().splitlines()[-1]
+    summary = json.loads(last[len("profile summary: "):])
+    prof = summary["launches"]
+    want = {"fused_cost_base": 4 * PROFILE_ITERS,
+            "fused_cost_base_backward": 2 * PROFILE_ITERS, "shift_1d": 0,
+            "shift_1d_backward": 0, "softsplat": PROFILE_ITERS}
+    if prof != want:
+        raise AssertionError(f"profile_step launches {prof}, want {want}")
+    if not (0 < summary["busy_share"] <= 1 and summary["top"]):
+        raise AssertionError(f"profile_step: {summary}")
+    top = sorted(summary["scopes"].items(), key=lambda kv: -kv[1])[:8]
+    log(12, f"profile_step --temporal --train (v2s bf16 384x1248, B=1, "
+        f"T=2): wall {summary['wall_ms']:.2f} ms a step, device busy "
+        f"{summary['busy_ms']:.2f} ms (share {summary['busy_share']:.3f}), "
+        f"{summary['events_per_step']:.0f} device events a step "
+        f"({100 * summary['linked_share']:.1f}% of their time linked to "
+        f"the launching operation), launches {prof} over {PROFILE_ITERS} "
+        f"steps on {card}")
+    for name, ms, n in summary["top"]:
+        log(12, f"  {ms:8.3f} ms/step {n:5d}/step  {name[:90]}")
+    log(12, "  scopes (ms/step): " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in top))
+    log(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return bench, prof
+
+
+def _stash(torch):
+    """An optimizer stage that passes the gradients on and keeps them."""
+    from temporalstereo_tpu_torch.training.optim import GradientTransformation
+
+    return GradientTransformation(
+        lambda p: {k: torch.zeros_like(v) for k, v in p.items()},
+        lambda g, s, p=None: (g, g))
+
+
+def remat_step(torch, port, kernels, t, remat, batch, steps=2):
+    """``steps`` BPTT steps of kitti2015-multi (from the same state) ->
+    (metrics, gradients, statistics of the first; launches of the first;
+    seconds of each; peak bytes above what was held before)."""
+    from temporalstereo_tpu_torch.training.optim import chain
+
+    cfg = port.get_cfg(KITTI, opts=[
+        "MODEL.PREVIOUS_WITH_GRADIENT", "True", "TPU.REMAT", str(remat),
+        "DATA.TRAIN.FRAME_IDXS", str(list(range(1 - t, 1)))])
+    model = port.build_model(cfg, seed=0)
+    state = port.TrainState.create(*port.master_copies(model),
+                                   chain(_stash(torch),
+                                         port.build_optimizer(cfg, 1000)))
+    step = port.make_train_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    secs, first = [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.LAUNCHES)
+            first = ({k: float(v) for k, v in metrics.items()},
+                     new.opt_state[0], new.batch_stats)
+        del new, metrics
+    peak = torch.cuda.max_memory_allocated() - held
+    del model, state, step
+    torch.cuda.empty_cache()
+    return first, launches, secs, peak
+
+
+def _grad_gap(torch, ours, ref):
+    """(||ours - ref|| / ||ref|| over all gradients, the worst tensor's
+    max|d| / max|ref|, its name)."""
+    diff = sum(float((ours[k] - g).double().square().sum())
+               for k, g in ref.items())
+    norm = sum(float(g.double().square().sum()) for g in ref.values())
+    worst = max(ref, key=lambda k: float((ours[k] - ref[k]).abs().max())
+                / max(float(ref[k].abs().max()), 1e-30))
+    return (math.sqrt(diff / norm),
+            float((ours[worst] - ref[worst]).abs().max())
+            / max(float(ref[worst].abs().max()), 1e-30), worst)
+
+
+def phase_remat(torch, port, kernels, card):
+    """Phase 13: the BPTT step with and without TPU.REMAT -> the launches
+    of the REMAT steps (T=3 and T=11)."""
+    t_phase = time.perf_counter()
+    cfg = port.get_cfg(KITTI)
+    b, h, w = (cfg.DATA.TRAIN.BATCH_SIZE, cfg.DATA.TRAIN.HEIGHT,
+               cfg.DATA.TRAIN.WIDTH)
+    batch = train_batch(torch, REMAT_T, b, h, w, "cuda")
+    runs = {}
+    for label, remat in (("plain", False), ("plain again", False),
+                         ("remat", True)):
+        runs[label] = remat_step(torch, port, kernels, REMAT_T, remat, batch)
+    (pm, pg, ps), p_launch, p_secs, p_peak = runs["plain"]
+    (qm, qg, qs), _, q_secs, q_peak = runs["plain again"]
+    (rm, rg, rs), r_launch, r_secs, r_peak = runs["remat"]
+    loss_rel = abs(rm["loss"] - pm["loss"]) / abs(pm["loss"])
+    gap, spread = _grad_gap(torch, rg, pg), _grad_gap(torch, qg, pg)
+    stats_equal = all(torch.equal(rs[k], v) for k, v in ps.items())
+    plain_stats_equal = all(torch.equal(qs[k], v) for k, v in ps.items())
+    stats_diff = max(float((rs[k] - v).abs().max()) for k, v in ps.items())
+    frames_fwd = 2 * REMAT_T
+    want_plain = {"fused_cost_base": frames_fwd,
+                  "fused_cost_base_backward": frames_fwd, "shift_1d": 0,
+                  "shift_1d_backward": 0, "softsplat": REMAT_T - 1}
+    log(13, f"BPTT kitti2015-multi v2s bf16 B={b} {h}x{w} T={REMAT_T}: "
+        f"loss plain {pm['loss']:.8g} / again {qm['loss']:.8g} / REMAT "
+        f"{rm['loss']:.8g} (rel {loss_rel:.3g}); gradients, ||d|| / "
+        "||plain|| over all tensors and the worst tensor's max|d| / its "
+        "max|plain|: REMAT vs plain %.3g, %.3g (%s), plain vs plain %.3g, "
+        "%.3g (%s); tol: REMAT's L2 <= %g x plain's" % (
+            gap + spread + (REMAT_GRAD_TOL,)))
+    log(13, f"  BatchNorm statistics equal: REMAT {stats_equal} (max|d| "
+        f"{stats_diff:.3g}), plain twice {plain_stats_equal}; launches "
+        f"plain {p_launch}, REMAT {r_launch}")
+    log(13, f"  step ms (first, second): plain "
+        f"{[round(1e3 * x, 1) for x in p_secs]} / "
+        f"{[round(1e3 * x, 1) for x in q_secs]}, REMAT "
+        f"{[round(1e3 * x, 1) for x in r_secs]}; peak memory above the "
+        f"model, state and batch: plain {p_peak / 2 ** 30:.2f} / "
+        f"{q_peak / 2 ** 30:.2f} GiB, REMAT {r_peak / 2 ** 30:.2f} GiB on "
+        f"{card}")
+    if not (loss_rel == 0 and stats_equal
+            and gap[0] <= REMAT_GRAD_TOL * spread[0]):
+        raise AssertionError("REMAT step disagrees with the plain step")
+    if p_launch != want_plain:
+        raise AssertionError(f"plain BPTT launches {p_launch}, want "
+                             f"{want_plain}")
+    if not (r_launch["fused_cost_base"] > frames_fwd
+            and {k: v for k, v in r_launch.items() if k != "fused_cost_base"}
+            == {k: v for k, v in want_plain.items()
+                if k != "fused_cost_base"}):
+        raise AssertionError(f"REMAT launches {r_launch}: the recompute "
+                             "did not run the cost base again")
+    if not r_peak < p_peak:
+        raise AssertionError("REMAT did not lower the peak memory")
+    del runs
+    t_long = len(cfg.DATA.TRAIN.FRAME_IDXS)
+    batch = train_batch(torch, t_long, b, h, w, "cuda")
+    (lm, _, _), l_launch, l_secs, l_peak = remat_step(
+        torch, port, kernels, t_long, True, batch)
+    if not math.isfinite(lm["loss"]):
+        raise AssertionError(f"REMAT T={t_long}: loss {lm['loss']}")
+    log(13, f"REMAT T={t_long} B={b} {h}x{w}: loss {lm['loss']:.6g}, step "
+        f"ms {[round(1e3 * x, 1) for x in l_secs]}, peak memory above the "
+        f"model, state and batch {l_peak / 2 ** 30:.2f} GiB, launches "
+        f"{l_launch} on {card}")
+    log(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return r_launch, l_launch
+
+
+def phase_planner(torch, port, card):
+    """Phase 14: the latency table on the card, its fit, and the
+    video_inference CLI's operating point against it."""
+    import tempfile
+
+    from temporalstereo_tpu_torch import serving
+    from temporalstereo_tpu_torch.cli import video_inference
+
+    t_phase = time.perf_counter()
+    h, w = 384, 1248
+    model = port.build_model(port.get_cfg(KITTI), seed=0)
+    table = serving.measure_latency_table(
+        model, h, w, PLANNER_STREAMS, PLANNER_CHUNKS, reps=5,
+        progress=lambda msg: log(14, msg))
+    del model
+    torch.cuda.empty_cache()
+    lm = serving.LatencyModel.fit(table, name=f"measured on {card}")
+    default = serving.H100_SXM_700W
+    log(14, "latency table (streams, chunk, wall ms) at 384x1248 bf16: "
+        + json.dumps([[s, c, round(x, 3)] for s, c, x in table]))
+    for s, (d, f) in lm.points.items():
+        dd, df = default.points[s]
+        log(14, f"  fit, {s} stream(s): {d:.3f} ms a chunk + {f:.3f} ms a "
+            f"frame ({1e3 / (d / 8 + f):.1f} fps/stream at chunk 8); the "
+            f"default table {default.name}: {dd:.3f} + {df:.3f} ms")
+    want = serving.select_operating_point(4, 30.0, lm)
+    want.update(target_fps=30.0, streams=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+        tmp = pathlib.Path(tmp)
+        write_sequence(tmp / "seq", 2, 375, 1242)
+        (tmp / "latency.json").write_text(json.dumps(
+            {"name": lm.name, "measurements": table}))
+        _, text = quiet_main(video_inference.main, [
+            "--config-file", KITTI, "--data-root", str(tmp / "seq"),
+            "--log-dir", str(tmp / "out"), "--target-fps", "30",
+            "--streams", "4", "--latency-model", str(tmp / "latency.json"),
+            "--export-bundle", str(tmp / "bundle.json")])
+        meta = json.loads((tmp / "bundle.json").read_text())
+    lines = [x for x in text.splitlines()
+             if x.startswith(("operating point:", "WARNING:"))]
+    expect = (f"operating point: chunk={want['chunk']} -> "
+              f"{want['fps_per_stream']} fps/stream" if want["feasible"]
+              else f"WARNING: {want['note']}")
+    if len(lines) != 1 or not lines[0].startswith(expect) \
+            or meta["operating_point"] != json.loads(json.dumps(want)):
+        raise AssertionError(f"video_inference planned {lines}, bundle "
+                             f"{meta.get('operating_point')}, want {want}")
+    log(14, f"video_inference --target-fps 30 --streams 4 on the measured "
+        f"table: {lines[0]}; recorded in the bundle's meta; the default "
+        f"table would choose "
+        f"{serving.select_operating_point(4, 30.0)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -1865,6 +2211,11 @@ def main():
     launches["eval"] = phase_eval(torch, port, kernels, card)
     launches["fit"], launches["fit_resume"] = phase_fit(torch, port,
                                                         kernels, card)
+    launches["demo"] = phase_demo(torch, port, kernels, card)
+    launches["benchmark_ops"], launches["profile_step"] = phase_tools(card)
+    launches["remat_t3"], launches["remat_t11"] = phase_remat(
+        torch, port, kernels, card)
+    phase_planner(torch, port, card)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

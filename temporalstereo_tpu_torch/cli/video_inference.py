@@ -4,6 +4,7 @@
         --config-file configs/kitti2015-multi.yaml --data-root SEQ \\
         --log-dir OUT [--checkpoint W.ckpt] [--fold-bn] [--bf16-params] \\
         [--export-bundle B.json | --load-bundle B.json] [--device cuda]
+        [--target-fps 30 --streams 4 --latency-model TABLE.json]
 
 Counterpart of the JAX package's ``cli/video_inference.py``: frame by frame
 over ``SEQ/left/*.png`` and ``SEQ/right/*.png``, carrying the temporal state,
@@ -21,6 +22,15 @@ stage is a CUDA-graph replay.  The estimate is brought to the ground
 truth's resolution as the JAX CLI does: scaled by the width ratio, then
 resized by Pillow's bilinear filter (``transforms.resize_pil_bilinear``,
 numpy); the input frames take the align-corners resize.
+
+``--target-fps`` plans the serving chunk (frames stepped between two host
+synchronisations) for ``--streams`` concurrent streams on one card from a
+measured latency table (``serving.select_operating_point``): the card's
+own default (``serving.H100_SXM_700W``) or a JSON file of measurements,
+``{"name": ..., "measurements": [[streams, chunk, wall_ms], ...]}``, as
+``serving.measure_latency_table`` gives them.  It prints the operating
+point, or a warning naming how many streams one card can serve at that
+rate, and ``--export-bundle`` records it in the bundle's meta.
 """
 from __future__ import annotations
 
@@ -58,6 +68,17 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-bundle", default="",
                    help="run from a serving bundle written by "
                         "--export-bundle for the same model and size")
+    p.add_argument("--target-fps", type=float, default=0.0,
+                   help="plan the serving chunk for this fps per stream "
+                        "from the latency table; warns when --streams "
+                        "cannot reach it on one card; recorded in the "
+                        "bundle's meta with --export-bundle")
+    p.add_argument("--streams", type=int, default=1,
+                   help="concurrent streams for --target-fps")
+    p.add_argument("--latency-model", default="H100_SXM_700W",
+                   help="the latency table for --target-fps: a name in "
+                        "serving.LATENCY_MODELS or a JSON file of "
+                        "measurements")
     p.add_argument("--no-exact-growth", action="store_true",
                    help="eager path only: start from a duplicate-filled "
                         "full local map instead of growing it a channel a "
@@ -74,6 +95,40 @@ def _find_gt(gt_dir: str, stem: str) -> str:
         if os.path.exists(path):
             return path
     return ""
+
+
+def latency_model(spec: str):
+    """A table of ``serving.LATENCY_MODELS`` by name, or one fit to the
+    measurements of a JSON file."""
+    import json
+
+    from ..serving import LATENCY_MODELS, LatencyModel
+
+    if spec in LATENCY_MODELS:
+        return LATENCY_MODELS[spec]
+    if not os.path.exists(spec):
+        raise SystemExit(f"error: --latency-model {spec!r} is neither one "
+                         f"of {sorted(LATENCY_MODELS)} nor a file")
+    with open(spec) as fp:
+        table = json.load(fp)
+    return LatencyModel.fit(table["measurements"],
+                            name=table.get("name", spec))
+
+
+def plan(args):
+    """The operating point of ``--target-fps``/``--streams``, printed."""
+    from ..serving import select_operating_point
+
+    op = select_operating_point(args.streams, args.target_fps,
+                                latency_model(args.latency_model))
+    op.update(target_fps=args.target_fps, streams=args.streams)
+    if op["feasible"]:
+        print(f"operating point: chunk={op['chunk']} -> "
+              f"{op['fps_per_stream']} fps/stream predicted "
+              f"({op['latency_ms']} ms chunk latency, model {op['model']})")
+    else:
+        print(f"WARNING: {op['note']}")
+    return op
 
 
 def main(argv=None) -> None:
@@ -133,10 +188,12 @@ def main(argv=None) -> None:
         cast_params_bf16(model)
         print("params cast to bf16 storage")
 
+    op_point = plan(args) if args.target_fps > 0 else None
     bundle = None
     if args.export_bundle:
         export_streaming_bundle(model, args.export_bundle, b=1, h=h, w=w,
-                                fold_bn=args.fold_bn)
+                                fold_bn=args.fold_bn,
+                                operating_point=op_point)
     path = args.load_bundle or args.export_bundle
     if path:
         bundle = load_streaming_bundle(path, model)
@@ -145,6 +202,11 @@ def main(argv=None) -> None:
                              f"{bundle.meta['w']}, requested {h}x{w}")
         print(f"bundle: {len(bundle.meta['stages'])} stages captured on "
               f"{bundle.meta['device_kind']} ({path})")
+        bop = bundle.meta.get("operating_point")
+        if bop:
+            print(f"bundle operating point: chunk={bop['chunk']} "
+                  f"({bop['fps_per_stream']} fps/stream predicted for "
+                  f"{bop['streams']} stream(s))")
 
     prev = None
     if model.with_previous and bundle is None:

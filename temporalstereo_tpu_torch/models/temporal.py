@@ -12,10 +12,13 @@ Batch layout of the training window (time-major):
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..nn.layers import recomputing
 from .stereo import (PrevInfo, TemporalStereoNet, backbone_memory_shapes,
                      init_prev_info, update_prev_info)
 
@@ -57,9 +60,35 @@ def streaming_step(model: TemporalStereoNet, left: torch.Tensor,
     return _frame(model, left, right, prev, K, baseline, T_past_to_now, warp)
 
 
+def _recompute_contexts():
+    return contextlib.nullcontext(), recomputing()
+
+
+def _remat(model: TemporalStereoNet, train: bool):
+    """``model``'s forward under a non-reentrant activation checkpoint: the
+    backward runs it again for its activations, in the mode of the first
+    run (the window has restored the model's own mode by then) and inside
+    ``recomputing()``, so that the BatchNorm statistics are not blended a
+    second time.  The kernels' ``autograd.Function``s save their inputs,
+    which the recompute regenerates."""
+    def run(left, right, prev):
+        was_training = model.training
+        model.train(train)
+        try:
+            return model(left, right, prev)
+        finally:
+            model.train(was_training)
+
+    def forward(left, right, prev):
+        return checkpoint(run, left, right, prev, use_reentrant=False,
+                          context_fn=_recompute_contexts)
+    return forward
+
+
 def multi_frame_forward(model: TemporalStereoNet,
                         batch: Dict[str, torch.Tensor], train: bool = False,
-                        previous_with_gradient: bool = False):
+                        previous_with_gradient: bool = False,
+                        remat: bool = False):
     """Run the temporal window -> (outputs of the final frame, final state).
 
     By default the past frames run in eval mode without gradients (their
@@ -69,6 +98,16 @@ def multi_frame_forward(model: TemporalStereoNet,
     frame runs in ``train`` mode with gradients through the backbone
     memories, and the outputs are the list of every frame's.  The model's
     own train/eval mode is restored on return.
+
+    ``remat`` (``TPU.REMAT``) keeps only each BPTT frame's inputs and
+    carried state and recomputes its activations in the backward: one more
+    forward per frame for memory O(1) frames in T.  As in the JAX package,
+    the warp between frames stays outside the checkpoint (the splat's
+    inputs are detached, so the recompute never reaches it), and without
+    BPTT nothing is checkpointed: the past frames run without gradients,
+    which keeps no activations (JAX's remat there only stops XLA from
+    buffering a dead backward), and the final frame's backward needs its
+    activations either way.
     """
     left, right = batch["left"], batch["right"]
     t, b, full_h, full_w, _ = left.shape
@@ -89,10 +128,14 @@ def multi_frame_forward(model: TemporalStereoNet,
 
         if previous_with_gradient:
             model.train(train)
+            forward = _remat(model, train) if remat else model
             all_outputs = []
             for i in range(t):
-                outputs, prev = _frame(model, left[i], right[i], prev, K,
-                                       baseline, t_p2n[i], warp=i > 0)
+                if i > 0:
+                    prev = update_prev_info(
+                        prev, K, baseline, t_p2n[i], (full_h, full_w),
+                        model.use_past_cost, model.local_map_size)
+                outputs, prev = forward(left[i], right[i], prev)
                 all_outputs.append(outputs)
             return all_outputs, prev
 

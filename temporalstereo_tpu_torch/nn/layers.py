@@ -14,6 +14,8 @@ runs with bf16-stored weights.  In a bf16 model nothing is cast.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional, Sequence, Union
 
 import torch
@@ -22,6 +24,23 @@ import torch.nn.functional as F
 
 Activation = Union[str, Sequence, None]
 BN_EPS = 1e-5
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of an activation-checkpoint recompute
+    (``models/temporal.py``, ``TPU.REMAT``), which runs a frame's forward
+    a second time in the backward: a train-mode ``BatchNorm`` normalises
+    with the batch statistics as before but leaves its running statistics
+    alone, so that they are blended once per frame, as without the
+    recompute (JAX's ``jax.checkpoint`` is functional and has no such
+    effect to repeat)."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def at_use(p: Optional[torch.Tensor], x: torch.Tensor
@@ -75,7 +94,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     unbiased one there).  The batch statistics for that update are computed
     in f32 whatever the input type, the variance in two passes.  Weights and
     statistics may stay f32 under a bf16 input; the output takes the input's
-    type.
+    type.  Inside ``recomputing()`` train mode updates nothing.
     """
 
     FLAX_MOMENTUM = 0.9
@@ -93,16 +112,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
-            xf = x.detach().float()
-            mean = xf.mean(dims)
-            shape = [1, -1] + [1] * (x.dim() - 2)
-            var = (xf - mean.view(shape)).square().mean(dims)
-            m = self.FLAX_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked += 1
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                dims = [0] + list(range(2, x.dim()))
+                xf = x.detach().float()
+                mean = xf.mean(dims)
+                shape = [1, -1] + [1] * (x.dim() - 2)
+                var = (xf - mean.view(shape)).square().mean(dims)
+                m = self.FLAX_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
 

@@ -1,5 +1,6 @@
 """Tensor ops of the port (JAX layouts at every public function)."""
-from .cost import block_cost, groupwise_correlation, shift_right_features
+from .cost import (block_cost, cat_fms, dif_fms, groupwise_correlation,
+                   shift_right_features)
 from .interpolate import avg_pool3d, resize_bilinear, resize_trilinear
 from .sampling import (fractional_disparity_samples, linear_disparity_samples,
                        sort_samples_with_volume, topk_soft_argmin)
@@ -9,7 +10,7 @@ from .warp import (grid_sample, inverse_warp, mesh_grid, project_to_3d,
                    shift_1d)
 
 __all__ = [
-    "avg_pool3d", "block_cost", "convex_upsample",
+    "avg_pool3d", "block_cost", "cat_fms", "convex_upsample", "dif_fms",
     "fractional_disparity_samples", "grid_sample", "groupwise_correlation",
     "inverse_warp", "linear_disparity_samples", "mask_upsample_9", "mesh_grid",
     "project_to_3d", "resize_bilinear", "resize_trilinear", "shift_1d",

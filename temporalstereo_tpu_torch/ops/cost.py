@@ -7,7 +7,9 @@ path's base (warp + concat + scale-0 correlation) is the fused kernel
 the base is concat(ref, warped) and the warp is the shift kernel
 (``kernels/shift.py``).  Each runs its plain version on CPU tensors.  The
 pooled correlation scales are plain PyTorch.  There is no TPU lowering
-switch.
+switch.  ``cat_fms`` and ``dif_fms`` (the reference's concatenation and
+difference volumes, off the model's path) are plain PyTorch, as in the
+JAX package, where no Pallas kernel computes them.
 """
 from __future__ import annotations
 
@@ -88,3 +90,35 @@ def block_cost(reference_fm: torch.Tensor, target_fm: torch.Tensor,
                                      avg_pool3d(tgt, (1, sh, sw)))
         costs.append(resize_trilinear(corr, (d, h, w)))
     return torch.cat(costs, dim=-1)
+
+
+def _warped_target(target_fm: torch.Tensor, disp_sample):
+    """(D, target shifted to x - d): the dense int form or per-pixel
+    hypotheses [B, D, H, W] through the shift (kernel on the card)."""
+    if isinstance(disp_sample, int):
+        return disp_sample, shift_right_features(target_fm, disp_sample)
+    return disp_sample.shape[1], shift_1d(
+        target_fm[:, None].contiguous(), (-disp_sample.float()).contiguous())
+
+
+def cat_fms(reference_fm: torch.Tensor, target_fm: torch.Tensor,
+            disp_sample) -> torch.Tensor:
+    """Concatenation cost volume (JAX ``ops/cost.py:cat_fms``): [B,H,W,C]
+    x2 and an int D (dense disparities 0..D-1) or [B,D,H,W] hypotheses ->
+    [B, D, H, W, 2C] = concat(ref, target warped to x - d)."""
+    b, h, w, c = reference_fm.shape
+    d, tgt = _warped_target(target_fm, disp_sample)
+    ref = reference_fm[:, None].expand(b, d, h, w, c)
+    return torch.cat([ref, tgt], dim=-1)
+
+
+def dif_fms(reference_fm: torch.Tensor, target_fm: torch.Tensor,
+            disp_sample) -> torch.Tensor:
+    """Absolute-difference cost volume with max-cost fill (JAX
+    ``ops/cost.py:dif_fms``): |ref - warped target| -> [B, D, H, W, C],
+    where every element whose warped target value is <= 0 (out of view
+    included) takes the volume's largest cost."""
+    b, h, w, c = reference_fm.shape
+    d, tgt = _warped_target(target_fm, disp_sample)
+    cost = (reference_fm[:, None] - tgt).abs()
+    return torch.where(tgt > 0, cost, cost.max())

@@ -35,6 +35,17 @@ Stages sharing the pool are replayed in the order they were captured
 shared pool requires: a stage may reuse memory that was an earlier stage's
 scratch.  A capture or replay that fails raises; nothing falls back to
 eager.  On a CPU model (the tests) the same stage functions run eagerly.
+
+Operating points (the JAX package's ``LatencyModel`` and
+``select_operating_point``): a latency model fit to measured (streams,
+chunk, wall ms) points, where ``streams`` is the bundle's batch (one
+stream per batch row), a chunk is the number of frames stepped between two
+host synchronisations, and ``wall`` is the time of that chunk: wall =
+d(streams) + chunk * t(streams).  A frame waits for its whole chunk, so a
+larger chunk trades latency for throughput.  ``measure_latency_table``
+measures the points on the card with this module's bundle; the default
+table, ``H100_SXM_700W``, is its measurement at 384x1248 (bf16 v2s, the
+flagship stream) on one H100 SXM at a 700 W power limit.
 """
 from __future__ import annotations
 
@@ -51,6 +62,116 @@ from .models.stereo import PrevInfo, TemporalStereoNet
 
 BUNDLE_VERSION = 1
 WARMUP = 3              # eager runs of a stage before its capture
+
+
+class LatencyModel:
+    """Linear-per-chunk latency model fit from measured (streams, chunk,
+    wall_ms) points; interpolates the per-chunk and per-frame costs between
+    measured stream counts and extrapolates beyond the last one."""
+
+    def __init__(self, points: Dict[int, Tuple[float, float]],
+                 name: str = "custom"):
+        # streams -> (per-chunk ms, per-frame ms)
+        self.points = dict(sorted(points.items()))
+        self.name = name
+
+    @classmethod
+    def fit(cls, measurements, name: str = "fit") -> "LatencyModel":
+        """Least-squares fit of wall = d + chunk * t per stream count
+        (at least two chunk sizes per stream count)."""
+        by_s: Dict[int, list] = {}
+        for s, c, w in measurements:
+            by_s.setdefault(int(s), []).append((float(c), float(w)))
+        pts = {}
+        for s, cw in by_s.items():
+            if len(cw) < 2:
+                raise ValueError(f"streams={s}: need >=2 chunk sizes")
+            n = len(cw)
+            sx = sum(c for c, _ in cw)
+            sy = sum(w for _, w in cw)
+            sxx = sum(c * c for c, _ in cw)
+            sxy = sum(c * w for c, w in cw)
+            t = (n * sxy - sx * sy) / max(n * sxx - sx * sx, 1e-9)
+            d = (sy - t * sx) / n
+            pts[s] = (max(d, 0.0), max(t, 1e-6))
+        return cls(pts, name)
+
+    def params(self, streams: int) -> Tuple[float, float]:
+        """(per-chunk ms, per-frame ms) at a stream count, interpolated."""
+        ks = list(self.points)
+        if streams <= ks[0]:
+            return self.points[ks[0]]
+        if streams >= ks[-1]:
+            # extrapolate the frame time with the last measured slope
+            if len(ks) >= 2:
+                (d1, t1), (d0, t0) = self.points[ks[-1]], self.points[ks[-2]]
+                slope = (t1 - t0) / max(ks[-1] - ks[-2], 1)
+                return d1, t1 + slope * (streams - ks[-1])
+            return self.points[ks[-1]]
+        for lo, hi in zip(ks, ks[1:]):
+            if lo <= streams <= hi:
+                f = (streams - lo) / (hi - lo)
+                d0, t0 = self.points[lo]
+                d1, t1 = self.points[hi]
+                return d0 + f * (d1 - d0), t0 + f * (t1 - t0)
+        raise AssertionError
+
+    def wall_ms(self, streams: int, chunk: int) -> float:
+        d, t = self.params(streams)
+        return d + chunk * t
+
+    def fps_per_stream(self, streams: int, chunk: int) -> float:
+        return 1000.0 * chunk / self.wall_ms(streams, chunk)
+
+
+# (streams, chunk, wall ms) of the flagship stream's bundle (v2s, bf16,
+# 384x1248) on one NVIDIA H100 80GB HBM3 (SXM) at a 700.00 W power limit,
+# measured by chip_smoke.py's planner phase (measure_latency_table, median
+# of 5 chunks a point).  A frame costs ~11.1 ms for one stream and ~52.6 ms
+# for eight: the card is busy with one stream's frame, so streams add
+# device time nearly linearly; a chunk's own cost is under 0.4 ms.
+H100_SXM_700W = LatencyModel.fit(
+    [(1, 1, 11.215), (1, 2, 22.442), (1, 8, 89.232),
+     (2, 1, 16.803), (2, 2, 33.489), (2, 8, 133.498),
+     (4, 1, 28.418), (4, 2, 56.804), (4, 8, 226.347),
+     (8, 1, 53.015), (8, 2, 105.643), (8, 8, 421.393)],
+    name="H100_SXM_700W")
+LATENCY_MODELS = {H100_SXM_700W.name: H100_SXM_700W}
+
+
+def select_operating_point(streams: int, target_fps: float,
+                           latency_model: Optional[LatencyModel] = None,
+                           max_chunk: int = 32) -> Dict[str, Any]:
+    """The smallest chunk (the lowest latency) whose predicted fps per
+    stream meets ``target_fps`` -> {chunk, fps_per_stream, latency_ms,
+    feasible, model, note}.  When no chunk up to ``max_chunk`` reaches it,
+    ``feasible`` is False, ``chunk`` is the best-throughput choice,
+    ``max_streams`` the most streams one card serves at the target, and
+    ``note`` says so."""
+    lm = latency_model or H100_SXM_700W
+    best_chunk, best_fps = 1, lm.fps_per_stream(streams, 1)
+    chunk = 1
+    while chunk <= max_chunk:
+        fps = lm.fps_per_stream(streams, chunk)
+        if fps > best_fps:
+            best_chunk, best_fps = chunk, fps
+        if fps >= target_fps:
+            return {"chunk": chunk, "fps_per_stream": round(fps, 1),
+                    "latency_ms": round(lm.wall_ms(streams, chunk), 1),
+                    "feasible": True, "model": lm.name, "note": ""}
+        chunk *= 2
+    max_streams = streams
+    while max_streams > 1 and lm.fps_per_stream(
+            max_streams, max_chunk) < target_fps:
+        max_streams -= 1
+    note = (f"{streams} stream(s) cannot reach {target_fps:.0f} fps/stream "
+            f"on one card (best {best_fps:.1f} fps at chunk {best_chunk}); "
+            f"serve <= {max_streams} stream(s) per card (streams are "
+            "independent)")
+    return {"chunk": best_chunk, "fps_per_stream": round(best_fps, 1),
+            "latency_ms": round(lm.wall_ms(streams, best_chunk), 1),
+            "feasible": False, "max_streams": max_streams,
+            "model": lm.name, "note": note}
 
 
 def cast_params_bf16(model: TemporalStereoNet) -> TemporalStereoNet:
@@ -286,10 +407,14 @@ class StreamingBundle:
 def export_streaming_bundle(model: TemporalStereoNet, path: str, b: int,
                             h: int, w: int, fold_bn: bool = False,
                             input_dtype: torch.dtype = torch.float32,
-                            progress: Callable = print) -> Dict[str, Any]:
-    """Write the bundle (JSON meta) of ``model`` at a batch and frame size;
-    ``load_streaming_bundle`` captures its stages."""
+                            progress: Callable = print,
+                            operating_point: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, Any]:
+    """Write the bundle (JSON meta) of ``model`` at a batch and frame size,
+    with the ``select_operating_point`` choice it was planned for (None:
+    not planned); ``load_streaming_bundle`` captures its stages."""
     meta = bundle_meta(model, b, h, w, fold_bn, input_dtype)
+    meta["operating_point"] = operating_point
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fp:
         json.dump(meta, fp, indent=1)
@@ -315,3 +440,46 @@ def load_streaming_bundle(path: str, model: TemporalStereoNet,
             "WITH_PREVIOUS / LOCAL_MAP_SIZE / the backbone, the compute "
             "type, --fold-bn and the weights file)")
     return StreamingBundle(meta, model, progress)
+
+
+def measure_latency_table(model: TemporalStereoNet, h: int, w: int,
+                          streams=(1, 2, 4, 8), chunks=(1, 2, 8),
+                          reps: int = 5, progress: Callable = print
+                          ) -> List[Tuple[int, int, float]]:
+    """(streams, chunk, wall ms) on the card: for each stream count a
+    bundle of that batch is captured and run through its growth stages,
+    then, per chunk size, the median over ``reps`` of the host time from a
+    synchronised start to the synchronisation after ``chunk`` steady
+    frames."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError("measure_latency_table: the model is not on a "
+                           "card")
+    g = torch.Generator(device=device).manual_seed(0)
+    table = []
+    for s in streams:
+        bundle = StreamingBundle(bundle_meta(model, s, h, w), model,
+                                 progress=lambda msg: None)
+        left = torch.rand((s, h, w, 3), generator=g, device=device)
+        right = torch.rand((s, h, w, 3), generator=g, device=device)
+        K = torch.tensor([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]],
+                         device=device).expand(s, 3, 3).contiguous()
+        baseline = torch.full((s,), 0.54, device=device)
+        T = torch.eye(4, device=device).expand(s, 4, 4).contiguous()
+        for _ in range(len(bundle.meta["stages"])):
+            bundle.step(left, right, K, baseline, T)
+        for c in chunks:
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                for _ in range(c):
+                    bundle.step(left, right, K, baseline, T)
+                torch.cuda.synchronize(device)
+                walls.append(1e3 * (time.perf_counter() - t0))
+            wall = sorted(walls)[len(walls) // 2]
+            table.append((s, c, wall))
+            progress(f"latency: {s} stream(s), chunk {c}: {wall:.3f} ms")
+        del bundle
+        torch.cuda.empty_cache()
+    return table

@@ -11,7 +11,8 @@ writes nothing for a step at or below the latest one it holds, and a
 
 Standalone weights (``save_weights``) are a ``.pth`` state_dict in the
 reference's names, which ``utils/checkpoint.py:load_weights`` (into a
-module) and ``load_any_weights`` (into a train state) read; the JAX package writes msgpack there.  Warm
+module) and ``load_any_weights`` (into a train state) read, as they read
+the JAX package's ``.msgpack`` weights (``utils/flax_msgpack.py``).  Warm
 starts merge as the JAX package's ``warm_start(strict=False)``: a tensor
 whose name and shape match is taken, every other one keeps its value.
 They act on the train state's f32 masters, so a bf16 model starts from
@@ -155,8 +156,9 @@ def warm_start(params: Tree, batch_stats: Tree, weights: Tree,
 
 def load_any_weights(params: Tree, batch_stats: Tree, path: str
                      ) -> Tuple[Tree, Tree, int]:
-    """Warm-start from a torch checkpoint file or a ``CheckpointManager``
-    directory (its latest step) -> (params, batch_stats, count)."""
+    """Warm-start from a torch checkpoint file, a JAX ``.msgpack`` weights
+    file or a ``CheckpointManager`` directory (its latest step) ->
+    (params, batch_stats, count)."""
     if os.path.isdir(path):
         mgr = CheckpointManager(path)
         if mgr.latest_step() is None:

@@ -62,15 +62,17 @@ def make_train_step(model: TemporalStereoNet, cfg: ConfigNode,
     loss, applies the optimizer to the f32 masters and reads back the
     BatchNorm statistics.  Metrics are the loss terms (per frame,
     ``{frame_idx}_...``, with PREVIOUS_WITH_GRADIENT) and ``grad_norm``,
-    as 0-d tensors on the model's device.
+    as 0-d tensors on the model's device.  ``TPU.REMAT`` recomputes each
+    BPTT frame's activations in the backward (``multi_frame_forward``).
     """
     l1_loss, wars_loss = build_losses(cfg)
     previous_with_gradient = cfg.MODEL.get("PREVIOUS_WITH_GRADIENT", False)
+    remat = cfg.TPU.get("REMAT", False)
 
     def losses_of(batch) -> Dict[str, torch.Tensor]:
         outputs, _ = multi_frame_forward(
             model, batch, train=True,
-            previous_with_gradient=previous_with_gradient)
+            previous_with_gradient=previous_with_gradient, remat=remat)
         if not previous_with_gradient:
             return compute_losses(outputs, batch["disp_gt"][-1], l1_loss,
                                   wars_loss)

@@ -11,8 +11,11 @@ does: a tensor whose name and shape match the model's is loaded, every
 other tensor of the model keeps its value, and the file's other entries
 are ignored.  (A 0-d entry stored as shape [1], as the exporter writes
 BatchNorm's ``num_batches_tracked``, matches: ``load_state_dict`` takes it
-so.)  Weights in the JAX package's own formats (msgpack, orbax)
-are converted first with ``python -m temporalstereo_tpu.cli.export_reference``.
+so.)  The JAX package's own ``.msgpack`` weights files
+(``training/checkpoint.py:save_weights``) are read without JAX by
+``utils/flax_msgpack.py`` and merge the same way; its orbax checkpoint
+directories are converted first with ``python -m
+temporalstereo_tpu.cli.export_reference``.
 
 ``backbone_from_timm`` renames a timm EfficientNetV2 state_dict (ImageNet
 weights of the trunk) to the port's backbone names; the trainer merges it
@@ -26,6 +29,7 @@ import torch
 import torch.nn as nn
 
 TORCH_EXTENSIONS = (".ckpt", ".pth", ".pt")
+MSGPACK_EXTENSION = ".msgpack"
 
 # the tensors of a timm block that the port's blocks hold, by block type
 _BN = ("weight", "bias", "running_mean", "running_var")
@@ -40,12 +44,17 @@ _TIMM_BLOCK_KEYS = {
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The tensors of a torch checkpoint file, on the CPU."""
+    """The tensors of a torch checkpoint file, or of the JAX package's
+    ``.msgpack`` weights by the port's names, on the CPU."""
+    if path.endswith(MSGPACK_EXTENSION):
+        from .flax_msgpack import read_state_dict as read_msgpack
+
+        return read_msgpack(path)
     if not path.endswith(TORCH_EXTENSIONS):
         raise ValueError(
             f"{path}: the port loads {'/'.join(TORCH_EXTENSIONS)} "
-            "checkpoints; convert other weights with python -m "
-            "temporalstereo_tpu.cli.export_reference")
+            f"checkpoints and {MSGPACK_EXTENSION} weights; convert other "
+            "weights with python -m temporalstereo_tpu.cli.export_reference")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
@@ -67,8 +76,9 @@ def matching_entries(own: Dict[str, torch.Tensor],
 
 
 def load_weights(model: nn.Module, path: str) -> int:
-    """Merge a torch checkpoint into ``model`` (in place) -> the number of
-    its tensors loaded (those whose name and shape match)."""
+    """Merge a torch checkpoint or a JAX ``.msgpack`` weights file into
+    ``model`` (in place) -> the number of its tensors loaded (those whose
+    name and shape match)."""
     matched = matching_entries(model.state_dict(), read_state_dict(path))
     model.load_state_dict(matched, strict=False)
     return len(matched)

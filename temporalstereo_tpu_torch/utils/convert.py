@@ -12,6 +12,9 @@ implementation's state_dict, which is the port's.  Kernel layouts:
 
 BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
 running_var``; ``num_batches_tracked`` is 0.
+
+With ``partial=True`` a tree that lacks some subtrees or leaves (a weights
+file of part of a model) converts the tensors it holds and skips the rest.
 """
 from __future__ import annotations
 
@@ -21,7 +24,40 @@ import numpy as np
 import torch
 
 
+class _Absent:
+    """A subtree or leaf a partial tree lacks: every lookup, slice and
+    transpose of it is itself, and it holds no key."""
+
+    def __getitem__(self, key):
+        return self
+
+    def get(self, key, default=None):
+        return self
+
+    def __contains__(self, key):
+        return False
+
+    def transpose(self, *axes):
+        return self
+
+
+ABSENT = _Absent()
+
+
+class _Partial(dict):
+    """A tree whose missing keys read as ``ABSENT``."""
+
+    def __getitem__(self, key):
+        value = dict.get(self, key, ABSENT)
+        return _Partial(value) if isinstance(value, dict) else value
+
+    def get(self, key, default=None):
+        return self[key]
+
+
 def _np(x) -> np.ndarray:
+    if x is ABSENT:
+        return x
     return np.asarray(x, dtype=np.float32)
 
 
@@ -34,7 +70,8 @@ class _Converter:
         self.sd[f"{prefix}.bias"] = _np(p["bias"])
         self.sd[f"{prefix}.running_mean"] = _np(s["mean"])
         self.sd[f"{prefix}.running_var"] = _np(s["var"])
-        self.sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+        if s["mean"] is not ABSENT:
+            self.sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
     def conv2d(self, prefix: str, p, s: Optional[Dict[str, Any]]):
         self.sd[f"{prefix}.weight"] = _np(p["Conv_0"]["kernel"]).transpose(
@@ -204,11 +241,15 @@ class _Converter:
 
 
 def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
-                        groups=None) -> Dict[str, torch.Tensor]:
+                        groups=None, partial: bool = False
+                        ) -> Dict[str, torch.Tensor]:
     """Flax (params, batch_stats) of the JAX package -> the port's
-    state_dict (CPU tensors; load with ``strict=True``)."""
+    state_dict (CPU tensors; load with ``strict=True``, or, of a
+    ``partial`` tree, merge by name and shape)."""
     from ..models.backbone import V2S_GROUPS
 
+    if partial:
+        params, batch_stats = _Partial(params), _Partial(batch_stats)
     conv = _Converter()
     conv.backbone(params["backbone"], batch_stats["backbone"],
                   V2S_GROUPS if groups is None else groups)
@@ -217,4 +258,4 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
                    params["aggregation"][which],
                    batch_stats["aggregation"][which])
     return {k: torch.from_numpy(np.array(v, order="C"))
-            for k, v in conv.sd.items()}
+            for k, v in conv.sd.items() if v is not ABSENT}

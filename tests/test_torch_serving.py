@@ -255,7 +255,7 @@ def test_load_weights_reads_reference_checkpoints(jax_variables, tmp_path):
         for k, v in model.state_dict().items():
             assert torch.equal(v, want[k]), k
     with pytest.raises(ValueError, match="export_reference"):
-        load_weights(model, str(tmp_path / "weights.msgpack"))
+        load_weights(model, str(tmp_path / "weights.npz"))
 
 
 def test_fold_refuses_train_mode():
