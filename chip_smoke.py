@@ -6,7 +6,8 @@
 Phases, each printed on its own line; any failure ends the script with a
 non-zero exit code and no result line:
   1. environment: torch / CUDA versions, card name and power limit;
-  2. build: every hand-written kernel, compiled with nvcc from the checkout;
+  2. build: every hand-written kernel, compiled with nvcc from the checkout,
+     and the native data library with g++;
   3. each kernel against its plain PyTorch version on the card, with the
      stated tolerances and times (the wrapper's, CUDA events around many
      calls, and the kernel's own device time from torch.profiler): the
@@ -97,7 +98,28 @@ non-zero exit code and no result line:
      --streams 4 against that table with --export-bundle (the operating
      point it prints equal to select_operating_point's, and recorded in
      the bundle's meta);
- 15. one JSON line listing every kernel, then the result line.
+ 15. the norm variants: kitti2015-multi (v2s, bf16) with GroupNorm in
+     the FPN and the three stages beside the same model with BatchNorm,
+     in this run: a 12-frame eager stream at 384x1248 (per-frame ms,
+     launches), the same served as CUDA graphs with BatchNorm folded and
+     GroupNorm left in the forward (replayed ms a frame, against eager),
+     two training steps at B=4, 320x1184, T=11 (step ms, peak memory,
+     beside phase 6's); the tiny f32 model with GN, IN, LN and FrozenBN,
+     card against CPU (2e-3 on the first frame, 5e-3 streamed); a
+     FrozenBN training step whose frozen statistics stay bit-unchanged;
+ 16. the surface off the main path: inverse_warp_3d without a y shift
+     (the shift kernel, held against the plain shift at phase 3's
+     tolerance) and summation_splat (the softsplat kernel), counted; the
+     4-tap warp, soft and hard argmin, max_pool3d, upsample_disp, SPP3D,
+     ConvGRU, StereoDRNetRefinement, ResidualBlock2D (GN) and BasicBlock
+     card against CPU at small shapes;
+ 17. the native data library: its g++ build (phase 2), a 375x1242 RGB
+     Paeth PNG decoded natively and in numpy (bit-equal, ms each), one
+     KITTI 2015 val sample built on one core each way, and phase 9's val
+     loader (2 process workers, native) with make_eval_step over 8
+     samples of Paeth PNGs: wait and step per sample, the step's share of
+     the loop once the batches the pool held ahead are consumed;
+ 18. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -895,6 +917,7 @@ def phase_flagship_train(torch, port, kernels, card, steps=3):
                                  f"{dmax:.3g} (lr {lr:g}), share moved "
                                  f"{share:.3f}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    MEASURED["train_peak_gib"] = peak
     log(6, f"flagship training kitti2015-multi v2s bf16 B={b} {h}x{w} T={t}, "
         f"{steps} steps: loss {metrics['loss']:.6g}, grad_norm "
         f"{metrics['grad_norm']:.6g}, launches {launches}; max parameter "
@@ -1012,10 +1035,13 @@ def seeded_frames(torch, n, h, w, seed):
              torch.rand((1, h, w, 3), generator=g).cuda()) for _ in range(n)]
 
 
-def kernel_counts(torch, fn):
+def kernel_counts(torch, fn, tries=3):
     """(events, {kernel: launches}) that one call of ``fn`` puts on the
-    card, by torch.profiler; the two kernels of the stream by name."""
-    events = _device_events(fn, 1)
+    card, by torch.profiler; the two kernels of the stream by name.  The
+    profiler now and then drops records of a graph replay (the same
+    replay traced again shows more events), so the trace with the most
+    events of ``tries`` counts."""
+    events = max((_device_events(fn, 1) for _ in range(tries)), key=len)
     return len(events), {
         "fused_cost_base": sum(COST_KERNEL in e.name for e in events),
         "softsplat": sum(SPLAT_KERNEL in e.name for e in events)}
@@ -1143,7 +1169,7 @@ def phase_serving(torch, port, kernels, card, frames=12, warm=4):
             torch, lambda: bundle.step(*pairs[0], K, bl, T))
         if steady != {"fused_cost_base": 2, "softsplat": 1}:
             raise AssertionError(f"serving {label}: a steady replay ran "
-                                 f"{steady}")
+                                 f"{steady} in {steady_events} events")
         eager, prev = eager_stream(torch, port, serving, model, pairs, K, bl,
                                    T)
         eager_events, _ = kernel_counts(
@@ -2119,6 +2145,553 @@ def phase_planner(torch, port, card):
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# the norm variants, the surface off the main path, the native data path
+GN_NORMS = ["MODEL.BACKBONE.NORM", "GN",
+            "MODEL.AGGREGATION.COARSE.NORM", "GN",
+            "MODEL.AGGREGATION.FINE.NORM", "GN",
+            "MODEL.AGGREGATION.PRECISE.NORM", "GN"]
+# every norm kind once: the FPN GN, the coarse stage IN, the fine LN, the
+# precise FrozenBN
+MIX_NORMS = ["MODEL.BACKBONE.NORM", "GN",
+             "MODEL.AGGREGATION.COARSE.NORM", "IN",
+             "MODEL.AGGREGATION.FINE.NORM", "LN",
+             "MODEL.AGGREGATION.PRECISE.NORM", "FrozenBN"]
+FROZEN_NORMS = ["MODEL.BACKBONE.NORM", "FrozenBN"] + [
+    x for stage in ("COARSE", "FINE", "PRECISE")
+    for x in (f"MODEL.AGGREGATION.{stage}.NORM", "FrozenBN")]
+SINGLE_TOL = 2e-3               # single-frame / streamed model tolerances
+STREAM_TOL = CARD_VS_CPU_TOL
+SURFACE_TOL = {"op": 1e-5, "block": 1e-4}   # card vs CPU, f32, TF32 off
+NATIVE_SAMPLES = 8
+NOISE = 1e-7                    # phase 15 scales a state by 1 + N(0, NOISE^2)
+
+
+def randomize_weights(torch, model, seed):
+    """Seeded weights of the tests' draw (``_jax_variables``): conv kernels
+    N(0, 1/fan_in), biases N(0, 0.1^2), norm scales and BatchNorm variances
+    in [0.75, 1.25], shifts and means N(0, 0.1^2)."""
+    from temporalstereo_tpu_torch.nn.layers import NORMS
+
+    g = torch.Generator().manual_seed(seed)
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d,
+             torch.nn.ConvTranspose3d)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, convs):
+                w = m.weight
+                fan_in = (w.shape[0] if isinstance(m, convs[2:]) else
+                          w.shape[1]) * math.prod(w.shape[2:])
+                w.copy_(torch.randn(w.shape, generator=g) / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+            elif isinstance(m, NORMS) and hasattr(m, "weight"):
+                n = m.weight.shape
+                m.weight.copy_(torch.rand(n, generator=g) * 0.5 + 0.75)
+                m.bias.copy_(torch.randn(n, generator=g) * 0.1)
+                if hasattr(m, "running_mean"):
+                    m.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
+                    m.running_var.copy_(torch.rand(n, generator=g) * 0.5
+                                        + 0.75)
+
+
+def _map_state(prev, fn):
+    """A PrevInfo with ``fn`` applied to each of its tensors."""
+    import dataclasses
+
+    def move(x):
+        if hasattr(x, "to"):
+            return fn(x)
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: move(getattr(x, f.name))
+                for f in dataclasses.fields(x)})
+        return x
+    return move(prev)
+
+
+def _prev_to(prev, device):
+    """A PrevInfo with its tensors copied to ``device``."""
+    return _map_state(prev, lambda x: x.to(device))
+
+
+def _jiggled(torch, prev, eps, gen):
+    """A PrevInfo whose float tensors are scaled by 1 + N(0, eps^2)."""
+    return _map_state(prev, lambda x: x * (
+        1 + eps * torch.randn(x.shape, generator=gen))
+        if x.is_floating_point() else x)
+
+
+def _steady_ms(secs, warm=4):
+    steady = sorted(secs[warm:])
+    return 1e3 * steady[len(steady) // 2]
+
+
+def phase_norms(torch, port, kernels, card, frames=12):
+    """Phase 15: kitti2015-multi (v2s, bf16) with GroupNorm in the FPN and
+    the three stages beside the same model with BatchNorm: a 12-frame eager
+    stream at 384x1248, the same stream served as CUDA graphs with
+    BatchNorm folded (GroupNorm stays in the forward), two training steps
+    at B=4, 320x1184, T=11; then the tiny f32 model with GN, IN, LN and
+    FrozenBN card against CPU, and a FrozenBN training step that leaves
+    its statistics bit-unchanged -> launches of the GN stream, bundle and
+    training steps."""
+    from temporalstereo_tpu_torch import serving
+    from temporalstereo_tpu_torch.nn.layers import FrozenBatchNorm, GroupNorm
+    from temporalstereo_tpu_torch.utils.fold_bn import fold_batch_norms
+
+    t_phase = time.perf_counter()
+    h, w = 384, 1248
+    out = {}
+    stream_want = {"fused_cost_base": 2 * frames,
+                   "fused_cost_base_backward": 0, "shift_1d": 0,
+                   "shift_1d_backward": 0, "softsplat": frames - 1}
+    for label, opts in (("BN", []), ("GN", GN_NORMS)):
+        cfg = port.get_cfg(KITTI, opts)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        outs, prev, secs = run_stream(torch, port, cfg, "cuda", frames, h, w,
+                                      seed=0, sync=True)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(bool(torch.isfinite(d).all()) and d.shape == (1, h, w, 1)
+                   for f in outs for d in f):
+            raise AssertionError(f"norms {label} stream: not finite")
+        if launches != stream_want:
+            raise AssertionError(f"norms {label} stream launches {launches}"
+                                 f" != {stream_want}")
+        out[label] = {"stream_ms": _steady_ms(secs), "stream_launches":
+                      launches}
+        log(15, f"kitti2015-multi v2s bf16 {label} {h}x{w}, {frames} eager "
+            f"frames: finite, launches {launches}; per-frame ms "
+            f"{[round(1e3 * s, 2) for s in secs]}, steady median "
+            f"{out[label]['stream_ms']:.2f} ms, peak {peak:.2f} GiB on "
+            f"{card}")
+        del outs, prev
+
+    K, bl, T = _geometry(torch, h, w, "cuda")
+    pairs = seeded_frames(torch, frames, h, w, seed=15)
+    for label, opts in (("BN", []), ("GN", GN_NORMS)):
+        cfg = port.get_cfg(KITTI, opts)
+        torch.cuda.empty_cache()
+        model = port.build_model(cfg, seed=0)
+        randomize_batch_norms(torch, model, seed=16)
+        groups = sum(isinstance(m, GroupNorm) for m in model.modules())
+        model, folded = fold_batch_norms(model)
+        kept = sum(isinstance(m, GroupNorm) for m in model.modules())
+        if kept != groups or (label == "GN") != (groups > 0):
+            raise AssertionError(f"norms {label}: {groups} GroupNorms before "
+                                 f"the fold, {kept} after")
+        bundle, outs, secs, held = serve(torch, serving, model, pairs, K, bl,
+                                         T, fold_bn=True)
+        eager, _ = eager_stream(torch, port, serving, model, pairs, K, bl, T)
+        rel = max_rel(torch, outs, eager)
+        if not rel <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"norms {label} bundle: replays vs eager "
+                                 f"rel {rel:.3g} > {CARD_VS_CPU_TOL}")
+
+        def replay_all():
+            bundle.reset()
+            for left, right in pairs:
+                bundle.step(left, right, K, bl, T)
+        _, per_run = kernel_counts(torch, replay_all)
+        if per_run != {"fused_cost_base": 2 * frames,
+                       "softsplat": frames - 1}:
+            raise AssertionError(f"norms {label} bundle: replays ran "
+                                 f"{per_run}")
+        launches = {name: 0 for name in kernels.LAUNCHES}
+        launches.update(per_run)
+        out[label].update(bundle_ms=_steady_ms(secs),
+                          bundle_launches=launches)
+        log(15, f"kitti2015-multi {label} served, {len(folded)} BatchNorms "
+            f"folded, {kept} GroupNorms left in the forward: captured "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in
+                        bundle.capture_seconds.items())
+            + f"; {frames} replays vs eager rel {rel:.3g} (tol "
+            f"{CARD_VS_CPU_TOL}); per-frame ms "
+            f"{[round(1e3 * x, 2) for x in secs]}, steady median "
+            f"{out[label]['bundle_ms']:.2f} ms; replayed kernels {per_run}; "
+            f"the graphs hold {held / 2 ** 30:.3f} GiB on {card}")
+        del bundle, outs, eager, model
+
+    torch.cuda.empty_cache()
+    cfg = port.get_cfg(KITTI, GN_NORMS)
+    t = len(cfg.DATA.TRAIN.FRAME_IDXS)
+    b = cfg.DATA.TRAIN.BATCH_SIZE
+    launches, secs, deltas, moved, metrics = _run_training(
+        torch, port, kernels, cfg, 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"fused_cost_base": 2 * t * 2, "fused_cost_base_backward": 4,
+            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": (t - 1) * 2}
+    if launches != want:
+        raise AssertionError(f"norms GN training launches {launches} != "
+                             f"{want}")
+    lr = cfg.OPTIMIZER.RMSPROP.LR
+    if not all(0.1 * lr <= d <= 10.01 * lr and m > 0.5
+               for d, m in zip(deltas, moved)):
+        raise AssertionError(f"norms GN training: parameter changes "
+                             f"{deltas}, shares moved {moved}")
+    out["GN"]["train_launches"] = launches
+    bn_secs = MEASURED["train_step_s"]
+    log(15, f"kitti2015-multi GN training B={b} "
+        f"{cfg.DATA.TRAIN.HEIGHT}x{cfg.DATA.TRAIN.WIDTH} T={t}, 2 steps: "
+        f"loss {metrics['loss']:.6g}, launches {launches}; per-step ms "
+        f"{[round(1e3 * x, 2) for x in secs]}, peak {peak:.2f} GiB; the BN "
+        f"model's steps (phase 6, this run) "
+        f"{[round(1e3 * x, 2) for x in bn_secs]} ms, peak "
+        f"{MEASURED['train_peak_gib']:.2f} GiB on {card}")
+    log(15, f"GN against BN, this run: eager frame "
+        f"{out['GN']['stream_ms']:.2f} / {out['BN']['stream_ms']:.2f} ms "
+        f"({out['GN']['stream_ms'] / out['BN']['stream_ms']:.3f}x), replayed "
+        f"frame {out['GN']['bundle_ms']:.2f} / {out['BN']['bundle_ms']:.2f} "
+        f"ms ({out['GN']['bundle_ms'] / out['BN']['bundle_ms']:.3f}x), "
+        f"second training step {1e3 * secs[1]:.2f} / "
+        f"{1e3 * bn_secs[1]:.2f} ms ({secs[1] / bn_secs[1]:.3f}x)")
+
+    # the tiny f32 model with every kind, card against CPU, each frame from
+    # the CPU's state, held on the first two frames (single-frame and
+    # streamed, the T=2 of the CPU tests against JAX).  From the third
+    # frame on, this random-weight stream's step is ill-conditioned in its
+    # carried state: the CPU's own step from the state scaled by
+    # 1 + N(0, NOISE^2) moves as far as the card does (both in the log)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = port.get_cfg(opts=TINY + MIX_NORMS)
+    th, tw, tframes, held = 96, 160, 5, 2
+    cpu_model = port.build_model(cfg, device="cpu", seed=3)
+    randomize_weights(torch, cpu_model, seed=21)
+    gpu_model = port.build_model(cfg, device="cuda", seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    K, bl, T = _geometry(torch, th, tw, "cpu", 30.0, 2.0)
+    prev = port.init_prev_info(
+        cpu_model, 1, (th, tw), port.backbone_memory_shapes(
+            cpu_model.backbone_cfg, (th, tw)), 2, local_map_channels=0)
+    g = torch.Generator().manual_seed(22)
+    noise = torch.Generator().manual_seed(23)
+    worst, same, free, moved = [0.0, 0.0], [], [], []
+    gprev = _prev_to(prev, "cuda")
+    for f in range(tframes):
+        left, right = (torch.rand((1, th, tw, 3), generator=g)
+                       for _ in range(2))
+        with torch.no_grad():
+            cout, nprev = port.streaming_step(cpu_model, left, right, prev,
+                                              K, bl, T)
+            gout, _ = port.streaming_step(
+                gpu_model, left.cuda(), right.cuda(), _prev_to(prev, "cuda"),
+                K.cuda(), bl.cuda(), T.cuda())
+            fout, gprev = port.streaming_step(
+                gpu_model, left.cuda(), right.cuda(), gprev, K.cuda(),
+                bl.cuda(), T.cuda())
+            nouts = [port.streaming_step(
+                cpu_model, left, right, _jiggled(torch, prev, NOISE, noise),
+                K, bl, T)[0] for _ in range(4)]
+        tol = SINGLE_TOL if f == 0 else STREAM_TOL
+        for i, (a, c) in enumerate(zip(gout["disps"], cout["disps"])):
+            rel = float((a.cpu() - c).abs().max() / (c.abs().mean() + 1e-6))
+            if f < held:
+                worst[f > 0] = max(worst[f > 0], rel)
+                if not rel < tol:
+                    raise AssertionError(
+                        f"norms tiny GN/IN/LN/FrozenBN frame {f} disparity "
+                        f"{i}: card vs CPU rel {rel:.3g} >= {tol}")
+        same.append(max_rel(torch, [a.cpu() for a in gout["disps"]],
+                            cout["disps"]))
+        free.append(max_rel(torch, [a.cpu() for a in fout["disps"]],
+                            cout["disps"]))
+        moved.append(max(max_rel(torch, n["disps"], cout["disps"])
+                         for n in nouts))
+        prev = nprev
+    log(15, f"tiny f32 {th}x{tw}, FPN GN, stages IN / LN / FrozenBN, "
+        f"{tframes} frames, card (kernels) vs CPU (plain), each frame from "
+        f"the CPU's state: worst max|d|/mean|cpu| {worst[0]:.3g} on the "
+        f"first frame (tol {SINGLE_TOL}), {worst[1]:.3g} on the second "
+        f"(tol {STREAM_TOL}); by frame, card vs CPU from the same state "
+        f"{[float(f'{x:.3g}') for x in same]} (held on the first {held}), "
+        f"the CPU's own step from that state scaled by 1 + N(0, "
+        f"{NOISE:g}^2) {[float(f'{x:.3g}') for x in moved]} (worst of 4), "
+        f"free-running streams {[float(f'{x:.3g}') for x in free]}")
+
+    cfg = port.get_cfg(KITTI, opts=TINY_TRAIN + FROZEN_NORMS)
+    model = port.build_model(cfg, device="cuda", seed=5)
+    randomize_batch_norms(torch, model, seed=17)
+    frozen = [f"{n}.{s}" for n, m in model.named_modules()
+              if isinstance(m, FrozenBatchNorm)
+              for s in ("running_mean", "running_var")]
+    state = port.TrainState.create(*port.master_copies(model),
+                                   port.build_optimizer(cfg, 10))
+    batch = train_batch(torch, 3, 1, 96, 128, "cuda", seed=6, focal=30.0,
+                        baseline=2.0, motion=(0.03, -0.05))
+    new, metrics = port.make_train_step(model, cfg)(state, batch)
+    changed = [k for k in frozen
+               if not torch.equal(new.batch_stats[k], state.batch_stats[k])]
+    others = [k for k in state.batch_stats if k not in frozen
+              and not torch.equal(new.batch_stats[k], state.batch_stats[k])]
+    if changed or not frozen or not others:
+        raise AssertionError(f"FrozenBN training step: {len(changed)} of "
+                             f"{len(frozen)} frozen statistics changed, "
+                             f"{len(others)} BatchNorm ones moved")
+    log(15, f"tiny f32 FrozenBN training step (T=3, 96x128): loss "
+        f"{float(metrics['loss']):.6g}; {len(frozen)} FrozenBN statistics "
+        f"bit-unchanged, {len(others)} of the trunk's BatchNorm statistics "
+        f"updated; phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    del model, state, new
+    torch.cuda.empty_cache()
+    return (out["GN"]["stream_launches"], out["GN"]["bundle_launches"],
+            out["GN"]["train_launches"])
+
+
+def _card_vs_cpu(torch, name, fn, args, tol, cpu_module=None):
+    """fn on the card and on the CPU (the same inputs; a module moved to
+    each) -> max |card - cpu| / max(1, max|cpu|)."""
+    import copy
+
+    outs = []
+    for dev in ("cuda", "cpu"):
+        moved = [a.to(dev) if hasattr(a, "to") and not isinstance(
+            a, torch.nn.Module) else a for a in args]
+        if cpu_module is not None:
+            mod = copy.deepcopy(cpu_module).to(dev).eval()
+            with torch.no_grad():
+                outs.append(mod(*moved).float().cpu())
+        else:
+            outs.append(fn(*moved).float().cpu())
+    card, cpu = outs
+    if card.shape != cpu.shape or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"surface {name}: card {tuple(card.shape)} vs "
+                             f"CPU {tuple(cpu.shape)} or not finite")
+    err = float((card - cpu).abs().max()) / max(1.0, float(
+        cpu.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"surface {name}: card vs CPU {err:.3g} > "
+                             f"{tol}")
+    return err
+
+
+def phase_surface(torch, port, kernels, card):
+    """Phase 16: the surface off the main path on the card.
+    ``inverse_warp_3d`` without a y shift launches the shift kernel (held
+    against its plain version at phase 3's tolerance) and
+    ``summation_splat`` the softsplat kernel; the 4-tap warp, the argmins,
+    ``max_pool3d``, ``upsample_disp`` and the blocks (SPP3D, ConvGRU,
+    StereoDRNetRefinement, ResidualBlock2D with GN, BasicBlock) card
+    against CPU at small shapes -> the kernels' launches."""
+    from temporalstereo_tpu_torch import nn as pnn
+    from temporalstereo_tpu_torch import ops
+    from temporalstereo_tpu_torch.kernels.shift import shift_1d_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    _, (b, h, w, c, d) = TRAIN_SHAPES[0]
+    img = torch.randn((b, h, w, c), generator=g, device=dev).bfloat16()
+    disp = (torch.rand((b, d, h, w), generator=g, device=dev) * (w + 8.0)
+            - 4.0)
+    values = torch.randn((1, 48, 156, 16), generator=g, device=dev)
+    flow = torch.randn((1, 48, 156, 2), generator=g, device=dev) * 3
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    warped = ops.inverse_warp_3d(img, disp)
+    splat = ops.summation_splat(values, flow)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {name: 0 for name in launches}
+    want.update(shift_1d=1, softsplat=1)
+    if launches != want:
+        raise AssertionError(f"surface launches {launches} != {want}")
+    err, ok = close(warped, shift_1d_plain(img[:, None], disp),
+                    *COST_TOL["bfloat16"])
+    if not ok:
+        raise AssertionError("inverse_warp_3d (shift kernel) disagrees with "
+                             "the plain shift")
+    serr, ok = close(splat, kernels.softsplat_plain(values, flow, None,
+                                                    "summation"), *SPLAT_TOL)
+    if not ok:
+        raise AssertionError("summation_splat disagrees with the plain "
+                             "splat")
+    log(16, f"inverse_warp_3d(disp_y=None) [{b},{h},{w},{c}] bf16 x "
+        f"[{b},{d},{h},{w}] -> the shift kernel, max|d| {err:.3g} against "
+        f"the plain shift (tol {COST_TOL['bfloat16']}); summation_splat "
+        f"[1,48,156,16] -> the softsplat kernel, max|d| {serr:.3g} (tol "
+        f"{SPLAT_TOL}); launches {launches}")
+
+    gc = torch.Generator().manual_seed(20)
+    rnd = (lambda *s: torch.randn(s, generator=gc))
+    errs = {}
+    small_img = rnd(2, 12, 20, 5)
+    shift, shift_y = rnd(2, 4, 12, 20) * 4, rnd(2, 4, 12, 20) * 3
+    errs["inverse_warp_3d(disp_y)"] = _card_vs_cpu(
+        torch, "inverse_warp_3d", lambda i, x, y: ops.inverse_warp_3d(
+            i, x, "zeros", y), (small_img, shift, shift_y),
+        SURFACE_TOL["op"])
+    cost, sample = rnd(2, 12, 20, 9), rnd(2, 12, 20, 9).abs() * 30
+    errs["soft_argmin"] = _card_vs_cpu(
+        torch, "soft_argmin", lambda a, s: ops.soft_argmin(a, s, 2.0),
+        (cost, sample), SURFACE_TOL["op"])
+    errs["hard_argmin"] = _card_vs_cpu(torch, "hard_argmin", ops.hard_argmin,
+                                       (cost, sample), 0.0)
+    vol = rnd(2, 7, 12, 20, 8)
+    errs["max_pool3d"] = _card_vs_cpu(
+        torch, "max_pool3d", lambda v: ops.max_pool3d(
+            v, (5, 5, 5), (1, 1, 1), (2, 2, 2)), (vol,), 0.0)
+    errs["upsample_disp"] = _card_vs_cpu(
+        torch, "upsample_disp", lambda x: ops.upsample_disp(x, (48, 80)),
+        (rnd(2, 12, 20, 1).abs() * 10,), SURFACE_TOL["op"])
+    blocks = (
+        ("SPP3D", pnn.SPP3D(8), (rnd(1, 8, 6, 18, 20),)),
+        ("ConvGRU", pnn.ConvGRU(8, 6), (rnd(2, 8, 12, 20),
+                                         rnd(2, 6, 12, 20))),
+        ("StereoDRNetRefinement", pnn.StereoDRNetRefinement(),
+         (rnd(1, 1, 24, 40).abs() * 5, rnd(1, 3, 24, 40),
+          rnd(1, 3, 24, 40))),
+        ("ResidualBlock2D GN", pnn.ResidualBlock2D(32, norm="GN"),
+         (rnd(2, 32, 13, 18),)),
+        ("BasicBlock", pnn.BasicBlock(32, 32, dilation=2),
+         (rnd(2, 32, 13, 18),)))
+    for name, module, args in blocks:
+        for p in module.parameters():
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=gc) * 0.3)
+        errs[name] = _card_vs_cpu(torch, name, None, args,
+                                  SURFACE_TOL["block"], cpu_module=module)
+    log(16, "card vs CPU, f32, TF32 off, max|d| / max(1, max|cpu|): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {SURFACE_TOL['op']} ops, 0 argmax and max pool, "
+        f"{SURFACE_TOL['block']} blocks) on {card}")
+    return launches
+
+
+def phase_native(torch, port, kernels, card, build_info):
+    """Phase 17: the native data library on the card's host: its build
+    (phase 2), a 375x1242 RGB Paeth PNG decoded natively and in numpy
+    (bit-equal), one KITTI 2015 val sample built on one core each way, and
+    phase 9's val loader (2 process workers, native) with make_eval_step
+    over a Paeth split: the wait and the step per sample, and the loop's
+    time per sample against the step alone -> the launches of that eval
+    loop."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from temporalstereo_tpu_torch.data import batch_to_device, native
+    from temporalstereo_tpu_torch.data import (build_dataloader,
+                                               build_stereo_dataset)
+    from temporalstereo_tpu_torch.data.png import read_png
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+    from temporalstereo_tpu_torch.training import make_eval_step
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        ann = write_kitti2015_split(str(tmp / "kitti"), NATIVE_SAMPLES,
+                                    EVAL_FRAMES, filter_type=4)
+        written = time.perf_counter() - t0
+        split = ["DATA.VAL.DATA_ROOT", str(tmp / "kitti"),
+                 "DATA.VAL.ANNFILE", ann, "DATA.VAL.FRAME_IDXS",
+                 str(EVAL_FRAMES), "DATA.VAL.PROCESS_WORKERS", "True"]
+        cfg = port.get_cfg(KITTI, split)
+        # one sample on one core each way; the dataset reads with
+        # use_native=None, sent down numpy's path here in this process only
+        dataset = build_stereo_dataset(cfg.DATA.VAL, "val")
+        sample_ms = {"library": _median_ms(
+            lambda: dataset.getitem_seeded(0, 0), 1)}
+        default = native.resolve
+        native.resolve = bool
+        try:
+            sample_ms["numpy"] = _median_ms(
+                lambda: dataset.getitem_seeded(0, 0), 1)
+        finally:
+            native.resolve = default
+        loader = build_dataloader(cfg.DATA.VAL, "val")
+        batches = iter(loader)
+        waits, steps, ready, marks = [], [], [], []
+        try:
+            with ThreadPoolExecutor(1) as ahead:
+                t_start = time.perf_counter()
+                first = ahead.submit(next, batches, None)
+                first.add_done_callback(
+                    lambda f: ready.append(time.perf_counter()))
+                name = loader.dataset.data_list[0]["0"]["left_image_path"]
+                path = str(tmp / "kitti" / name)
+                nat = read_png(path, use_native=True)
+                ref = read_png(path, use_native=False)
+                if nat.shape != (375, 1242, 3) or not np.array_equal(nat,
+                                                                     ref):
+                    raise AssertionError("native PNG decode differs from "
+                                         "numpy's")
+                nat_ms = _median_ms(lambda: read_png(path, use_native=True),
+                                    5)
+                np_ms = _median_ms(lambda: read_png(path, use_native=False),
+                                   3)
+                model = port.build_model(cfg, seed=0)
+                eval_step = make_eval_step(model, cfg)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t_loop = t_wait = time.perf_counter()
+                batch = first.result()
+            while batch is not None:
+                marks.append(t_wait)
+                waits.append(time.perf_counter() - t_wait)
+                t0 = time.perf_counter()
+                on_card = batch_to_device(batch)
+                metrics = eval_step(on_card)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                if not all(math.isfinite(float(v)) for v in metrics.values()):
+                    raise AssertionError("native eval metrics not finite")
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+            loop = time.perf_counter() - t_loop
+        finally:
+            loader.close()
+        launches = dict(kernels.LAUNCHES)
+    # the last batch's step again with no loader running: the step alone
+    alone = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eval_step(on_card)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t0)
+    del on_card
+    t = len(EVAL_FRAMES)
+    if len(steps) != NATIVE_SAMPLES:
+        raise AssertionError(f"native eval loader gave {len(steps)} batches")
+    want = {"fused_cost_base": 2 * t * NATIVE_SAMPLES,
+            "softsplat": (t - 1) * NATIVE_SAMPLES}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"native eval launches {launches}")
+    # the batches the pool holds when the loop starts (its workers' and
+    # its queue's) hide the loader; the loop after them is the steady one
+    ahead = loader.num_workers + loader.prefetch
+    per_sample = (t_loop + loop - marks[ahead]) / (len(steps) - ahead)
+    alone_ms = 1e3 * sorted(alone)[len(alone) // 2]
+    log(17, f"native library: g++ build {build_info['seconds']:.2f} s "
+        f"(phase 2); 375x1242 RGB Paeth PNG decode {nat_ms:.2f} ms native, "
+        f"{np_ms:.1f} ms numpy ({np_ms / nat_ms:.1f}x), bit-equal; one "
+        f"KITTI 2015 val sample (11 frames, Paeth PNGs) built on one core "
+        f"{sample_ms['library']:.1f} ms native, {sample_ms['numpy']:.1f} ms "
+        f"numpy ({sample_ms['numpy'] / sample_ms['library']:.1f}x) on {card}")
+    log(17, f"val loader, native, 2 process workers, {NATIVE_SAMPLES} "
+        f"samples (split written in {written:.1f} s; first batch "
+        f"{ready[0] - t_start:.1f} s after the pool's start, overlapping "
+        f"the decode timings and the model's build): wait per "
+        f"sample ms {[round(1e3 * x, 1) for x in waits]}, eval step ms "
+        f"{[round(1e3 * s, 1) for s in steps]}; after the {ahead} batches "
+        f"the pool holds ahead, the loop takes {1e3 * per_sample:.1f} ms a "
+        f"sample (waits median "
+        f"{1e3 * sorted(waits[ahead:])[len(waits[ahead:]) // 2]:.1f} ms) "
+        f"against {alone_ms:.1f} ms for the step alone (its last batch "
+        f"again, no loader running, median of "
+        f"{[round(1e3 * s, 1) for s in alone]}): "
+        f"{1e3 * per_sample / alone_ms:.2f}x; launches {launches}; "
+        f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -2191,6 +2764,11 @@ def main():
 
     info = build.build_all(ptxas_info=True)
     log(2, f"built {info['built']} in {info['seconds']:.1f} s")
+    from temporalstereo_tpu_torch.data import native
+
+    native_info = native.build()
+    log(2, f"native data library {pathlib.Path(native_info['path']).name}: "
+        f"built {native_info['built']} in {native_info['seconds']:.2f} s")
     for name, text in info["log"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2216,6 +2794,11 @@ def main():
     launches["remat_t3"], launches["remat_t11"] = phase_remat(
         torch, port, kernels, card)
     phase_planner(torch, port, card)
+    (launches["norms_stream"], launches["norms_bundle"],
+     launches["norms_train"]) = phase_norms(torch, port, kernels, card)
+    launches["surface"] = phase_surface(torch, port, kernels, card)
+    launches["eval_native"] = phase_native(torch, port, kernels, card,
+                                           native_info)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

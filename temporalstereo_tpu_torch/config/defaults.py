@@ -131,6 +131,11 @@ def get_default_config() -> CN:
         node.ACTIVATION = "SiLU"
         _C.MODEL.AGGREGATION[stage] = node
 
+    _C.MODEL.PREDICTION = CN()
+    _C.MODEL.PREDICTION.NAME = "SOFTARGMIN"      # "SOFTARGMIN" | "ARGMIN"
+    _C.MODEL.PREDICTION.TEMPERATURE = 1.0
+    _C.MODEL.PREDICTION.NORMALIZE = True
+
     _C.MODEL.LOSSES = CN()
     # the JAX package's (and the reference's) spelling
     _C.MODEL.LOSSES.WARSSERSTEIN_DISTANCE_LOSS = CN()

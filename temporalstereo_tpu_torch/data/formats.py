@@ -4,20 +4,32 @@ Copies of the JAX package's ``data/formats.py`` readers and writers, in
 numpy and the standard library: PNG files are read and written by the
 port's own codec (``data/png.py``), so no imaging package is needed for
 them.  Only ``load_image`` of another format (JPEG, ...) imports Pillow.
+As in the JAX package, PFM files and PNG rows are decoded by the native
+library (``data/native.py``) unless the numpy path is asked for.
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .png import read_png, write_png
 
 
-def load_pfm(path: str) -> Tuple[np.ndarray, float]:
-    """A PFM file -> (array [H, W] or [H, W, 3] f32, top row first, scale)."""
+def load_pfm(path: str, use_native: Optional[bool] = None
+             ) -> Tuple[np.ndarray, float]:
+    """A PFM file -> (array [H, W] or [H, W, 3] f32, top row first, scale);
+    decoded natively unless ``use_native`` is False."""
+    from . import native
+
+    if native.resolve(use_native):
+        with open(path, "rb") as f:
+            buf = f.read()
+        if buf[:2] not in (b"PF", b"Pf"):
+            raise ValueError(f"not a PFM file: {path}")
+        return native.decode_pfm(buf)
     with open(path, "rb") as f:
         header = f.readline().decode("latin-1").rstrip()
         if header not in ("PF", "Pf"):

@@ -6,17 +6,21 @@ files are 16-bit RGB), all five row filters (PNG specification, section
 9).  Anything else (palette, other bit depths, interlaced) raises
 ValueError.
 
-Reading undoes each row's filter.  The Sub, Average and Paeth filters make
+Reading undoes each row's filter: by default in the native library
+(``native.py:png_unfilter``, a row at a time in C++), or, with
+``use_native=False``, in numpy.  The Sub, Average and Paeth filters make
 a byte depend on the reconstructed byte to its left, so where a row has
 the Average or Paeth filter the decoder walks the image one anti-diagonal
 of pixels at a time: a pixel depends only on
 its left, upper and upper-left neighbours, which all lie on earlier
-diagonals, so every row advances in one vectorised step per diagonal.
+diagonals, so every row advances in one vectorised step per diagonal.  Either way
+the image data is inflated with the standard library's ``zlib``.
 """
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -86,10 +90,19 @@ def _unfilter(filtered: np.ndarray, bpp: int) -> np.ndarray:
                     ).astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, use_native: Optional[bool] = None) -> np.ndarray:
     """A PNG file -> uint8 or uint16 [H, W] (gray) / [H, W, C]."""
     with open(path, "rb") as fp:
-        data = fp.read()
+        return decode_png(fp.read(), path, use_native)
+
+
+def decode_png(data: bytes, path: str = "PNG data",
+               use_native: Optional[bool] = None) -> np.ndarray:
+    """PNG bytes -> uint8 or uint16 [H, W] (gray) / [H, W, C]; ``path``
+    names them in errors.  The rows are unfiltered natively unless
+    ``use_native`` is False."""
+    from . import native
+
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -113,9 +126,14 @@ def read_png(path: str) -> np.ndarray:
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"{path}: image data of {raw.size} bytes for "
                          f"{w}x{h}")
-    pixels = _unfilter(raw.reshape(h, 1 + w * bpp), bpp)
-    if depth == 16:
-        pixels = pixels.reshape(h, w, bpp).view(">u2").astype(np.uint16)
+    filtered = raw.reshape(h, 1 + w * bpp)
+    if native.resolve(use_native):
+        pixels = native.png_unfilter(filtered, bpp, depth).reshape(
+            h, w, channels)
+    else:
+        pixels = _unfilter(filtered, bpp)
+        if depth == 16:
+            pixels = pixels.reshape(h, w, bpp).view(">u2").astype(np.uint16)
     return pixels[..., 0] if channels == 1 else pixels
 
 

@@ -3,30 +3,37 @@ the training augmentation (colour jitter, random crop, right-view
 occlusion) and the intrinsics that follow a crop or a resize.
 
 Copies of the JAX package's ``data/transforms.py`` functions.  The resize
-of images and disparities is the align-corners bilinear resize of the JAX
-package's native ``ts_resize_bilinear`` (``native/tsnative.cpp``) in
-numpy, with the same arithmetic: source coordinates in float64, weights
-and blends in f32.  (``F.interpolate`` computes the coordinates in f32,
-which moves a pixel by up to a few 1e-6.)  ``resize_pil_bilinear`` is
-Pillow's bilinear resample of a float image, which the JAX package's
-video CLI applies to its estimate before the ground-truth metrics.
-``color_jitter`` is the JAX package's numpy path; its native kernel agrees
-with it to 3e-5.
+of images and disparities is the align-corners bilinear resize
+``ts_resize_bilinear`` of the native library (``data/native.py``), as in
+the JAX package; its numpy path (``use_native=False``) has the same
+arithmetic, source coordinates in float64, weights and blends in f32, but
+without the FMAs the compiler may contract the native blends into, so it
+can differ in the last bit.  (``F.interpolate`` computes the coordinates in
+f32, which moves a pixel by up to a few 1e-6.)  ``resize_pil_bilinear`` is
+Pillow's bilinear resample of a float image, which the JAX package's video
+CLI applies to its estimate before the ground-truth metrics.
+``color_jitter`` runs natively by default, as the JAX package's does; its
+numpy path agrees with the native kernel to 3e-5.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def normalize(img: np.ndarray, mean=IMAGENET_MEAN, std=IMAGENET_STD
-              ) -> np.ndarray:
-    """(img - mean) / std in f32, subtraction then division."""
+def normalize(img: np.ndarray, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+              use_native: Optional[bool] = None) -> np.ndarray:
+    """(img - mean) / std of [H, W, C] in f32, subtraction then division
+    (the same IEEE operations natively and in numpy: the same bits)."""
+    if native.resolve(use_native) and np.ndim(img) == 3:
+        return native.normalize_inplace(np.array(img, np.float32), mean, std)
     out = np.subtract(img, np.asarray(mean, np.float32), dtype=np.float32)
     np.divide(out, np.asarray(std, np.float32), out=out)
     return out
@@ -46,11 +53,15 @@ def _taps(n_in: int, n_out: int):
     return lo, np.minimum(lo + 1, n_in - 1), (src - lo).astype(np.float32)
 
 
-def resize_image(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Align-corners bilinear resize of [H, W, C] f32 to ``size`` (h, w)."""
+def resize_image(img: np.ndarray, size: Tuple[int, int],
+                 use_native: Optional[bool] = None) -> np.ndarray:
+    """Align-corners bilinear resize of [H, W, C] f32 to ``size`` (h, w),
+    natively unless ``use_native`` is False."""
     h, w = size
     if img.shape[:2] == (h, w):
         return img
+    if native.resolve(use_native):
+        return native.resize_bilinear(img, size)
     img = np.ascontiguousarray(img, np.float32)
     y0, y1, wy = _taps(img.shape[0], h)
     x0, x1, wx = _taps(img.shape[1], w)
@@ -61,13 +72,14 @@ def resize_image(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return top * (1 - wy) + bot * wy
 
 
-def resize_disparity(disp: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+def resize_disparity(disp: np.ndarray, size: Tuple[int, int],
+                     use_native: Optional[bool] = None) -> np.ndarray:
     """Resize an [H, W] disparity and scale its values by the width ratio."""
     h, w = size
     if disp.shape[:2] == (h, w):
         return disp
     scale = w / disp.shape[1]
-    return resize_image(disp[..., None], size)[..., 0] * scale
+    return resize_image(disp[..., None], size, use_native)[..., 0] * scale
 
 
 def _pil_taps(n_in: int, n_out: int):
@@ -168,17 +180,25 @@ def color_jitter(img: np.ndarray, rng: np.random.RandomState,
                  contrast: Tuple[float, float] = (0.5, 1.5),
                  saturation: Tuple[float, float] = (0.5, 1.5),
                  hue: Tuple[float, float] = (-0.1, 0.1),
-                 gamma: Tuple[float, float] = (0.8, 1.2)) -> np.ndarray:
+                 gamma: Tuple[float, float] = (0.8, 1.2),
+                 use_native: Optional[bool] = None) -> np.ndarray:
     """torchvision's ColorJitter (brightness, contrast, saturation, hue in a
     random order) then a gamma, on [H, W, 3] floats in [0, 1], with the
     reference's factor ranges.  Draws from ``rng`` in a fixed sequence: the
-    four factors, the order, the gamma."""
+    four factors, the order, the gamma.  The pixel work runs in the native
+    kernel for an RGB image unless ``use_native`` is False, as the JAX
+    package's ``use_native=None`` does."""
     fb = rng.uniform(*brightness)
     fc = rng.uniform(*contrast)
     fs = rng.uniform(*saturation)
     fh = rng.uniform(*hue)
     order = rng.permutation(4)
     g = rng.uniform(*gamma)
+
+    if native.resolve(use_native) and img.ndim == 3 and img.shape[-1] == 3:
+        out = np.ascontiguousarray(img, np.float32)
+        out = out.copy() if out is img else out
+        return native.color_jitter_inplace(out, order, fb, fc, fs, fh, g)
 
     out = img.astype(np.float32)
     for op in order:

@@ -24,6 +24,7 @@ from ..ops.interpolate import resize_bilinear
 from ..ops.sampling import (fractional_disparity_samples,
                             linear_disparity_samples,
                             sort_samples_with_volume, topk_soft_argmin)
+from ..utils.registry import AGGREGATION_REGISTRY
 
 
 @dataclasses.dataclass
@@ -220,6 +221,7 @@ class PreciseAggregation(nn.Module):
         return full_disp, disp, cost, off, disp_sample, new_memory
 
 
+@AGGREGATION_REGISTRY.register(name="TEMPORALSTEREO")
 class TemporalStereoAggregation(nn.Module):
     """The cascade coarse -> fine -> precise, search range disp +/- 4
     between stages; outputs are listed finest first."""

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..nn.layers import BatchNorm, Conv2d
 from ..ops.interpolate import resize_bilinear
+from ..utils.registry import BACKBONE_REGISTRY
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +128,7 @@ class InvertedResidual(nn.Module):
         return (x + h if self.has_residual else h), new_memory
 
 
+@BACKBONE_REGISTRY.register(name="TEMPORALSTEREO")
 class TemporalStereoBackbone(nn.Module):
     """forward(l_img, r_img, memories, has_memory) -> (l_fms [x4, x8, x16],
     r_fms, new_memories), all [B, C, H, W].  ``memories`` is a sequence of

@@ -5,8 +5,9 @@ variant logic.  Weights are random, drawn from a ``torch.Generator`` seeded
 with ``seed`` (load real ones with ``load_state_dict``); the model is
 returned in eval mode.  Convolution weights are stored in the compute type
 that TRAINER.PRECISION selects; BatchNorm weights and running statistics
-stay f32, as flax keeps them under its bf16 policy (the normalisation runs
-in f32 and returns the compute type).  Training keeps f32 master copies of
+stay f32, as do the weights of the other norms (GN, LN), as flax keeps them
+under its bf16 policy (the normalisation runs in f32 and returns the compute
+type).  Training keeps f32 master copies of
 every parameter in its ``TrainState`` and refreshes this working copy from
 them before each step (``training/step.py``).
 """
@@ -19,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ConfigNode
-from ..nn.layers import BatchNorm
+from ..nn.layers import NORMS
 from .backbone import TINY_GROUPS
 from .stereo import TemporalStereoNet
 
@@ -64,7 +65,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     * math.sqrt(2.0 / fan_out))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, BatchNorm):
+        elif isinstance(m, NORMS) and hasattr(m, "reset_parameters"):
             m.reset_parameters()
 
 
@@ -103,6 +104,6 @@ def build_model(cfg: ConfigNode, device=None,
     init_weights(model, torch.Generator().manual_seed(seed))
     model.to(device=device, dtype=dtype)
     for m in model.modules():
-        if isinstance(m, BatchNorm):
+        if isinstance(m, NORMS):
             m.float()
     return model.eval()

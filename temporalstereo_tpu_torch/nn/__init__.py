@@ -1,10 +1,16 @@
 """Layers and blocks of the port (channels-first)."""
-from .blocks import (ConvexUpsample, DepthwiseConv3D, DepthwiseConvTranspose3D,
-                     PredictionHeads, PyramidFusion, ResidualBlock3D, UNet)
-from .layers import (Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d,
-                     get_activation)
+from .blocks import (SPP3D, BasicBlock, ConvexUpsample, DepthwiseConv3D,
+                     DepthwiseConvTranspose3D, PredictionHeads, PyramidFusion,
+                     ResidualBlock2D, ResidualBlock3D, StereoDRNetRefinement,
+                     UNet)
+from .layers import (BatchNorm, Conv2d, Conv3d, ConvGRU, ConvTranspose2d,
+                     ConvTranspose3d, FrozenBatchNorm, GroupNorm,
+                     InstanceNorm, LayerNorm, get_activation,
+                     get_norm)
 
-__all__ = ["Conv2d", "Conv3d", "ConvTranspose2d", "ConvTranspose3d",
-           "ConvexUpsample", "DepthwiseConv3D", "DepthwiseConvTranspose3D",
-           "PredictionHeads", "PyramidFusion", "ResidualBlock3D", "UNet",
-           "get_activation"]
+__all__ = ["BasicBlock", "BatchNorm", "Conv2d", "Conv3d", "ConvGRU",
+           "ConvTranspose2d", "ConvTranspose3d", "ConvexUpsample",
+           "DepthwiseConv3D", "DepthwiseConvTranspose3D", "FrozenBatchNorm",
+           "GroupNorm", "InstanceNorm", "LayerNorm", "PredictionHeads",
+           "PyramidFusion", "ResidualBlock2D", "ResidualBlock3D", "SPP3D",
+           "StereoDRNetRefinement", "UNet", "get_activation", "get_norm"]

@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``nn/blocks.py``: DepthwiseConv3D,
 DepthwiseConvTranspose3D, ResidualBlock3D, PredictionHeads, PyramidFusion,
 ConvexUpsample and the UNet guidance encoder/decoder, with the reference
-implementation's module names.  Per-pixel maps (disparities, costs,
-offsets) leave the blocks in the JAX layouts (NHWC, sample-last).
+implementation's module names, and the blocks off the main path:
+ResidualBlock2D, BasicBlock, StereoDRNetRefinement and SPP3D.  Per-pixel
+maps (disparities, costs, offsets) leave the main path's blocks in the JAX
+layouts (NHWC, sample-last); StereoDRNetRefinement takes and returns
+channels-first maps, as the reference's module does.
 """
 from __future__ import annotations
 
@@ -14,12 +17,42 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.interpolate import resize_trilinear
+from ..ops.interpolate import resize_bilinear, resize_trilinear
 from ..ops.upsample import convex_upsample, mask_upsample_9
+from ..ops.warp import inverse_warp
 from .layers import (Activation, BatchNorm, Conv2d, Conv3d, ConvTranspose2d,
                      ConvTranspose3d)
 
 _NCDHW = (2, 3, 4)
+_NCHW = dict(h_axis=2, w_axis=3)
+
+
+class ResidualBlock2D(nn.Module):
+    """2D hourglass with bilinear-resize skips (the 2D counterpart of
+    ResidualBlock3D, with the same module names)."""
+
+    def __init__(self, in_planes: int, norm: str = "BN",
+                 activation: Activation = "SiLU"):
+        super().__init__()
+        c = in_planes
+        act = dict(bias=False, norm=norm, activation=activation)
+        noact = dict(bias=False, norm=norm, activation=None)
+        self.conv1 = Conv2d(c, 2 * c, 3, 2, 1, **act)
+        self.conv2 = Conv2d(2 * c, 2 * c, 3, 1, 1, **act)
+        self.conv3 = Conv2d(2 * c, 2 * c, 3, 2, 1, **act)
+        self.conv4 = Conv2d(2 * c, 2 * c, 3, 1, 1, **act)
+        self.conv5 = ConvTranspose2d(2 * c, 2 * c, 3, 2, 1, 1, **noact)
+        self.conv6 = ConvTranspose2d(2 * c, c, 3, 2, 1, 1, **noact)
+        self.shortcut5 = Conv2d(2 * c, 2 * c, 1, 1, 0, **noact)
+        self.shortcut6 = Conv2d(c, c, 1, 1, 0, **noact)
+
+    def forward(self, x):
+        pre = self.conv2(self.conv1(x))
+        out = self.conv4(self.conv3(pre))
+        out = resize_bilinear(self.conv5(out), pre.shape[2:], **_NCHW)
+        out = F.silu(out + self.shortcut5(pre))
+        out = resize_bilinear(self.conv6(out), x.shape[2:], **_NCHW)
+        return F.silu(out + self.shortcut6(x))
 
 
 class DepthwiseConv3D(nn.Module):
@@ -192,3 +225,79 @@ class UNet(nn.Module):
         f = self.concat(torch.cat([f, feat2x], dim=1))
         mask = self.deconv2(f).permute(0, 2, 3, 1).float()
         return mask_upsample_9(disp, mask)
+
+
+class BasicBlock(nn.Module):
+    """Dilated residual block: two 3x3 convs (the second without an
+    activation) plus the input."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
+                 dilation: int = 1, norm: str = "BN",
+                 activation: Activation = "ReLU"):
+        super().__init__()
+        pad = dilation if dilation > 1 else 1
+        self.conv1 = Conv2d(in_planes, out_planes, 3, stride, pad, dilation,
+                            bias=False, norm=norm, activation=activation)
+        self.conv2 = Conv2d(out_planes, out_planes, 3, 1, pad, dilation,
+                            bias=False, norm=norm, activation=None)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x)) + x
+
+
+class StereoDRNetRefinement(nn.Module):
+    """Warp-error refinement head (an alternative to the UNet, off the main
+    path): the right image warped by the disparity, its error against the
+    left one, six dilated blocks and a residual on the disparity.
+    disp [B, 1, H, W], images [B, 3, H, W] -> [B, 1, H, W]."""
+
+    def __init__(self):
+        super().__init__()
+        C = 16
+        r = dict(bias=False, norm="BN", activation="ReLU")
+        self.feat_conv = Conv2d(12, C, 3, 1, 1, **r)
+        self.disp_conv = Conv2d(1, C, 3, 1, 1, **r)
+        self.dilated_block = nn.Sequential(*[
+            BasicBlock(2 * C, 2 * C, dilation=d) for d in (1, 2, 4, 8, 1, 1)])
+        self.final_conv = Conv2d(2 * C, 1, 3, 1, 1, bias=True)
+
+    def forward(self, disp, left_image, right_image):
+        nhwc = (lambda t: t.permute(0, 2, 3, 1))
+        warp_left = inverse_warp(nhwc(right_image), -nhwc(disp),
+                                 mode="disparity").permute(0, 3, 1, 2)
+        error = torch.abs(warp_left - left_image)
+        feat = self.feat_conv(torch.cat([left_image, right_image, warp_left,
+                                         error], dim=1))
+        x = torch.cat([feat, self.disp_conv(disp)], dim=1)
+        return F.relu(disp + self.final_conv(self.dilated_block(x)))
+
+
+class SPP3D(nn.Module):
+    """3D spatial pyramid pooling over a cost volume [B, C, D, H, W]: per
+    stride an average pool clamped to the volume (floor semantics), a
+    16-channel 1x1x1 conv, a trilinear align-corners resize back; the
+    branches and the input concatenated, a full 3x3x3 fuse conv and a plain
+    1x1x1 projection."""
+
+    def __init__(self, in_planes: int, strides: Tuple[int, ...] = (2, 4, 8,
+                                                                     16),
+                 norm: str = "BN3d", activation: Activation = "ReLU"):
+        super().__init__()
+        self.strides = tuple(strides)
+        r = dict(bias=False, norm=norm, activation=activation)
+        self.pools = nn.ModuleList([Conv3d(in_planes, 16, 1, 1, 0, **r)
+                                    for _ in self.strides])
+        self.fuse = nn.Sequential(
+            Conv3d(in_planes + 16 * len(self.strides), in_planes, 3, 1, 1,
+                   **r),
+            Conv3d(in_planes, in_planes, 1, 1, 0, bias=False))
+
+    def forward(self, cost):
+        d, h, w = cost.shape[2:]
+        branches = [cost]
+        for stride, conv in zip(self.strides, self.pools):
+            window = (min(d, stride), min(h, stride), min(w, stride))
+            pooled = F.avg_pool3d(cost, window, window)
+            branches.append(resize_trilinear(conv(pooled), (d, h, w),
+                                             _NCDHW))
+        return self.fuse(torch.cat(branches, dim=1))

@@ -1,9 +1,10 @@
 """Conv wrappers with a fused ``.norm`` and activation (channels-first).
 
 Counterpart of the JAX package's ``nn/layers.py``.  Each wrapper is the torch
-conv itself plus an optional ``BatchNorm`` under ``.norm`` (eps 1e-5, flax
-semantics, below) and an activation, so its ``state_dict`` keys are those of
-the reference implementation (``{prefix}.weight``, ``{prefix}.norm.*``).
+conv itself plus an optional norm under ``.norm`` (``get_norm``: BatchNorm,
+FrozenBN, GroupNorm, InstanceNorm or LayerNorm, eps 1e-5, flax semantics,
+below) and an activation, so its ``state_dict`` keys are those of the
+reference implementation (``{prefix}.weight``, ``{prefix}.norm.*``).
 Unlike the JAX package, separable 3D kernels stay ``nn.Conv3d`` with (1,k,k)
 and (k,1,1) kernels: the JAX package folds depth into 2D convs for XLA.
 
@@ -127,18 +128,112 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
 
-def _norm(kind: Optional[str], channels: int) -> Optional[nn.Module]:
+class FrozenBatchNorm(BatchNorm):
+    """The JAX package's ``FrozenBN``: a BatchNorm that normalises with its
+    running statistics in every mode and never updates them (flax
+    ``BatchNorm(use_running_average=True)``).  Its affine weights train."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            at_use(self.weight, x), at_use(self.bias, x),
+                            False, 0.0, self.eps)
+
+
+class _AffineNorm(nn.Module):
+    """A per-channel scale and bias over dim 1 (``weight``, ``bias``, f32
+    like BatchNorm's); the statistics run in f32 and the output takes the
+    input's type, as flax's norms compute under a bf16 policy.  torch's
+    norms take the variance in two passes where flax's take
+    max(0, E[x^2] - mean^2): the two agree within 1e-5 on the inputs of
+    ``tests/test_torch_surface.py``."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+
+class GroupNorm(_AffineNorm):
+    """flax ``GroupNorm(num_groups=max(1, C // 32))`` over [B, C, ...]:
+    each group of C / G channels is normalised over its channels and every
+    spatial position."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps)
+        self.groups = max(1, num_features // 32)
+        if num_features % self.groups:
+            raise ValueError(f"{self.groups} groups do not divide "
+                             f"{num_features} channels")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # F.group_norm reduces each (sample, group) in one thread block,
+        # which leaves most of the card idle at B=1 with a few groups
+        # (PERF.md §6): one reduction over the whole tensor for the
+        # statistics, then one multiply-add with per-channel factors
+        b, c = x.shape[:2]
+        xf = x.float()
+        var, mean = torch.var_mean(xf.reshape(b, self.groups, -1), -1,
+                                   correction=0)
+        per = c // self.groups
+        scale = (torch.rsqrt(var + self.eps).repeat_interleave(per, 1)
+                 * self.weight.float())
+        shift = self.bias.float() - mean.repeat_interleave(per, 1) * scale
+        shape = (b, c) + (1,) * (x.dim() - 2)
+        return torch.addcmul(shift.view(shape), xf,
+                             scale.view(shape)).to(x.dtype)
+
+
+class LayerNorm(_AffineNorm):
+    """flax ``LayerNorm`` of a channels-last tensor: each position is
+    normalised over its channels only, here dim 1 of [B, C, ...] (moved
+    last for ``F.layer_norm``, which normalises the trailing dims)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float().movedim(1, -1), (self.num_features,),
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.movedim(-1, 1).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """The JAX package's ``IN``: each channel of each sample normalised
+    over every spatial position, with the biased variance and no
+    parameters; f32 statistics, the output in the input's type."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x.float(), eps=self.eps).to(x.dtype)
+
+
+BATCH_NORMS = ("BN", "BN1d", "BN3d", "SyncBN", "nnSyncBN", "naiveSyncBN")
+NORMS = (BatchNorm, GroupNorm, LayerNorm, InstanceNorm)
+
+
+def get_norm(kind: Optional[str], channels: int) -> Optional[nn.Module]:
+    """The norm a config names (``MODEL.BACKBONE.NORM``, each stage's
+    ``NORM``): the JAX package's ``nn/layers.py:Norm`` kinds."""
     if kind is None or kind == "None":
         return None
-    if kind in ("BN", "BN1d", "BN3d", "SyncBN", "nnSyncBN", "naiveSyncBN",
-                "FrozenBN"):
+    if kind in BATCH_NORMS:
         return BatchNorm(channels)
-    raise ValueError(f"unsupported norm {kind!r}")
+    table = {"FrozenBN": FrozenBatchNorm, "GN": GroupNorm, "IN": InstanceNorm,
+             "LN": LayerNorm}
+    if kind not in table:
+        raise ValueError(f"unsupported norm {kind!r}")
+    return table[kind](channels)
 
 
 class _NormAct:
     def _setup(self, norm, activation, channels):
-        self.norm = _norm(norm, channels)
+        self.norm = get_norm(norm, channels)
         self.act = get_activation(activation)
 
     def _post(self, y):
@@ -203,3 +298,25 @@ class ConvTranspose3d(nn.ConvTranspose3d, _NormAct):
         return self._post(F.conv_transpose3d(
             x, at_use(self.weight, x), at_use(self.bias, x), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation))
+
+
+class ConvGRU(nn.Module):
+    """Convolutional GRU cell (the JAX package's ``nn/layers.py:ConvGRU``):
+    h, x [B, C, H, W] -> the next h [B, hidden, H, W].  ``MODEL.BACKBONE.
+    USE_GRU`` leaves it unused; it is here for the API."""
+
+    def __init__(self, hidden_planes: int, in_planes: int,
+                 kernel_size: int = 3):
+        super().__init__()
+        pad = kernel_size // 2
+        c = hidden_planes + in_planes
+        self.convz = Conv2d(c, hidden_planes, kernel_size, 1, pad)
+        self.convr = Conv2d(c, hidden_planes, kernel_size, 1, pad)
+        self.convq = Conv2d(c, hidden_planes, kernel_size, 1, pad)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(self.convz(hx))
+        r = torch.sigmoid(self.convr(hx))
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1 - z) * h + z * q

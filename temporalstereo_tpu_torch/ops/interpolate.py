@@ -9,7 +9,7 @@ channels-first tensors.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,29 @@ def resize_trilinear(x: torch.Tensor, size: Tuple[int, int, int],
                      axes: Tuple[int, int, int] = (1, 2, 3)) -> torch.Tensor:
     """Trilinear align-corners resize, default layout NDHWC."""
     return _resize(x, size, axes, "trilinear")
+
+
+def upsample_disp(disp: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """A [B, H, W, 1] disparity resized to ``size`` with its values scaled
+    by the width ratio (the reference's ``F.interpolate(d * full_w / w)``
+    idiom)."""
+    scale = size[1] / disp.shape[-2]
+    return resize_bilinear(disp * scale, size)
+
+
+def max_pool3d(x: torch.Tensor, window: Tuple[int, int, int],
+               stride: Optional[Tuple[int, int, int]] = None,
+               padding: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """Max pool over NDHWC (stride defaults to the window; ``padding`` on
+    both sides of each axis with -inf, floor semantics), as the JAX
+    package's ``max_pool3d``."""
+    stride = tuple(stride or window)
+    y = x.permute(0, 4, 1, 2, 3)
+    pd, ph, pw = padding
+    if any(padding):
+        y = F.pad(y, (pw, pw, ph, ph, pd, pd), value=float("-inf"))
+    y = F.max_pool3d(y, tuple(window), stride)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def avg_pool3d(x: torch.Tensor, window: Tuple[int, int, int]) -> torch.Tensor:

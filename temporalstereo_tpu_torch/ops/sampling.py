@@ -33,6 +33,24 @@ def topk_soft_argmin(cost: torch.Tensor, disp_sample: torch.Tensor,
     return disp, topk_disp, topk_cost
 
 
+def soft_argmin(cost: torch.Tensor, disp_sample: torch.Tensor,
+                temperature: float = 1.0, normalize: bool = True
+                ) -> torch.Tensor:
+    """The softmax(cost * temperature)-weighted expectation of the
+    hypotheses (``cost`` itself as the weights when not ``normalize``):
+    cost, disp_sample [B, H, W, D] -> [B, H, W, 1]."""
+    prob = torch.softmax(cost * temperature, dim=-1) if normalize else cost
+    return torch.sum(prob * disp_sample, dim=-1, keepdim=True)
+
+
+def hard_argmin(cost: torch.Tensor, disp_sample: torch.Tensor
+                ) -> torch.Tensor:
+    """The hypothesis of the largest cost (ties to the first index, as
+    ``jnp.argmax`` breaks them): [B, H, W, D] -> [B, H, W, 1]."""
+    idx = torch.argmax(cost, dim=-1, keepdim=True)
+    return torch.gather(disp_sample, -1, idx)
+
+
 def sort_samples_with_volume(disp_sample: torch.Tensor, volume: torch.Tensor,
                              dim: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort hypotheses by disparity (stable) and permute the volume to match.

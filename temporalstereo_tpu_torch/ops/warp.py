@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``ops/warp.py``: ``mesh_grid``,
 ``grid_sample`` and ``inverse_warp`` (the occlusion split of the
 evaluation), ``project_to_3d`` (the pose reprojection of the temporal
-update) and ``shift_1d`` (the W-axis bilinear gather of the cost volume).
+update), ``shift_1d`` (the W-axis bilinear gather of the cost volume) and
+``inverse_warp_3d``, the general warp of a volume, which is the shift
+kernel's wrapper where it shifts along W only.
 Coordinates are f32 whatever the data type.  The JAX package's one-hot
 matmul form of the W-shift exists for the TPU's matrix unit and is not
 carried over.
@@ -149,3 +151,47 @@ def shift_1d(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
         return torch.gather(src, 3, idx) * weight[..., None]
 
     return (tap(x0, 1 - fx) + tap(x0 + 1, fx)).to(img.dtype)
+
+
+def inverse_warp_3d(img: torch.Tensor, disp: torch.Tensor,
+                    padding_mode: str = "zeros",
+                    disp_y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bilinear warp of a volume img [B, D|1, H, W, C] (or [B, H, W, C],
+    broadcast over D) by per-(d, h, w) shifts: x + disp and, with
+    ``disp_y`` [B, D, H, W], y + disp_y -> [B, D, H, W, C].  Coordinates
+    in f32, weights in img's type; 'zeros' drops each out-of-range tap,
+    'border' clamps it.
+
+    Without ``disp_y`` in 'zeros' mode this is ``kernels/shift.py:shift_1d``:
+    the shift kernel on CUDA tensors, its plain version on CPU tensors.
+    With ``disp_y`` (or 'border') it is the 4-tap gather here, as the JAX
+    package computes it outside any kernel."""
+    if img.dim() == 4:
+        img = img[:, None]
+    if disp_y is None:
+        if padding_mode == "zeros":
+            from ..kernels.shift import shift_1d as shift_kernel
+
+            return shift_kernel(img, disp.float())
+        disp_y = torch.zeros_like(disp)
+    b, d, h, w = disp.shape
+    c = img.shape[-1]
+    src = img.expand(b, d, h, w, c).reshape(b, d, h * w, c)
+    xs = torch.arange(w, dtype=torch.float32, device=disp.device
+                      ).view(1, 1, 1, w) + disp.float()
+    ys = torch.arange(h, dtype=torch.float32, device=disp.device
+                      ).view(1, 1, h, 1) + disp_y.float()
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    fx, fy = (xs - x0).to(img.dtype), (ys - y0).to(img.dtype)
+
+    def tap(xi, yi, weight):
+        if padding_mode == "zeros":
+            valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            weight = weight * valid.to(img.dtype)
+        idx = (yi.clamp(0, h - 1).long() * w
+               + xi.clamp(0, w - 1).long()).reshape(b, d, -1, 1)
+        vals = torch.gather(src, 2, idx.expand(-1, -1, -1, c))
+        return vals.reshape(b, d, h, w, c) * weight[..., None]
+
+    return (tap(x0, y0, (1 - fx) * (1 - fy)) + tap(x0 + 1, y0, fx * (1 - fy))
+            + tap(x0, y0 + 1, (1 - fx) * fy) + tap(x0 + 1, y0 + 1, fx * fy))

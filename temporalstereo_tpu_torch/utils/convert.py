@@ -10,8 +10,18 @@ implementation's state_dict, which is the port's.  Kernel layouts:
   ConvT2d  (kh,kw,I,O)  -> [I,O,kh,kw]
   ConvT3d  spatial (kh,kw,I,O) -> [I,O,1,kh,kw]; depth (kd,1,I,O) -> [I,O,kd,1,1]
 
-BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
-running_var``; ``num_batches_tracked`` is 0.
+  Conv3d   full (kd,kh,kw,I,O) -> [O,I,kd,kh,kw] (SPP3D's 3x3x3 fuse)
+
+A conv's ``Norm_0``: BatchNorm (BN and FrozenBN) ``scale/bias/mean/var``
+become ``weight/bias/running_mean/running_var`` (``num_batches_tracked``
+0); GroupNorm's and LayerNorm's ``scale/bias`` become ``weight/bias``; an
+instance norm has no variables.  A conv whose norm keeps no statistics has
+no subtree in ``batch_stats``: the statistics tree is always read as a
+partial one.
+
+``module_state_dict_from_jax`` converts the variables of one block off the
+main path (ResidualBlock2D, BasicBlock, StereoDRNetRefinement, SPP3D,
+ConvGRU) to the port module's state_dict.
 
 With ``partial=True`` a tree that lacks some subtrees or leaves (a weights
 file of part of a model) converts the tensors it holds and skips the rest.
@@ -73,27 +83,43 @@ class _Converter:
         if s["mean"] is not ABSENT:
             self.sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
+    def _put_norm(self, prefix: str, p, s):
+        """The ``Norm_0`` subtree of a conv, if it has one."""
+        if "Norm_0" not in p:
+            return
+        n = p["Norm_0"]
+        for affine in ("GroupNorm_0", "LayerNorm_0"):
+            if affine in n:
+                self.sd[f"{prefix}.weight"] = _np(n[affine]["scale"])
+                self.sd[f"{prefix}.bias"] = _np(n[affine]["bias"])
+                return
+        self._put_bn(prefix, n["BatchNorm_0"], s["Norm_0"]["BatchNorm_0"])
+
     def conv2d(self, prefix: str, p, s: Optional[Dict[str, Any]]):
         self.sd[f"{prefix}.weight"] = _np(p["Conv_0"]["kernel"]).transpose(
             3, 2, 0, 1)
         if "bias" in p["Conv_0"]:
             self.sd[f"{prefix}.bias"] = _np(p["Conv_0"]["bias"])
-        if "Norm_0" in p:
-            self._put_bn(f"{prefix}.norm", p["Norm_0"]["BatchNorm_0"],
-                         s["Norm_0"]["BatchNorm_0"])
+        self._put_norm(f"{prefix}.norm", p, s)
+
+    def convt2d(self, prefix: str, p, s: Optional[Dict[str, Any]]):
+        self.sd[f"{prefix}.weight"] = _np(p["kernel"]).transpose(2, 3, 0, 1)
+        if "bias" in p:
+            self.sd[f"{prefix}.bias"] = _np(p["bias"])
+        self._put_norm(f"{prefix}.norm", p, s)
 
     def conv3d(self, prefix: str, kind: str, p, s: Optional[Dict[str, Any]]):
         k = _np(p["Conv_0"]["kernel"])
         if kind == "spatial":
             w = k.transpose(3, 2, 0, 1)[:, :, None]
+        elif kind == "full":
+            w = k.transpose(4, 3, 0, 1, 2)
         else:
             w = k[:, 0].transpose(2, 1, 0)[..., None, None]
         self.sd[f"{prefix}.weight"] = w
         if "bias" in p["Conv_0"]:
             self.sd[f"{prefix}.bias"] = _np(p["Conv_0"]["bias"])
-        if "Norm_0" in p:
-            self._put_bn(f"{prefix}.norm", p["Norm_0"]["BatchNorm_0"],
-                         s["Norm_0"]["BatchNorm_0"])
+        self._put_norm(f"{prefix}.norm", p, s)
 
     def convt3d(self, prefix: str, kind: str, p, s: Optional[Dict[str, Any]]):
         k = _np(p["ConvTranspose2d_0"]["kernel"])
@@ -102,9 +128,7 @@ class _Converter:
         else:
             w = k[:, 0].transpose(1, 2, 0)[..., None, None]
         self.sd[f"{prefix}.weight"] = w
-        if "Norm_0" in p:
-            self._put_bn(f"{prefix}.norm", p["Norm_0"]["BatchNorm_0"],
-                         s["Norm_0"]["BatchNorm_0"])
+        self._put_norm(f"{prefix}.norm", p, s)
 
     def dw3d(self, prefix: str, p, s):
         self.conv3d(f"{prefix}.conv.0", "spatial", p["Conv3d_0"],
@@ -170,9 +194,7 @@ class _Converter:
         self.sd[f"{prefix}.deconv4.weight"] = _np(
             p["deconv4"]["kernel"]).transpose(2, 3, 0, 1)
         self.sd[f"{prefix}.deconv4.bias"] = _np(p["deconv4"]["bias"])
-        self._put_bn(f"{prefix}.deconv4.norm",
-                     p["deconv4"]["Norm_0"]["BatchNorm_0"],
-                     s["deconv4"]["Norm_0"]["BatchNorm_0"])
+        self._put_norm(f"{prefix}.deconv4.norm", p["deconv4"], s["deconv4"])
         self.sd[f"{prefix}.deconv2.weight"] = _np(
             p["deconv2"]["kernel"]).transpose(2, 3, 0, 1)
         self.sd[f"{prefix}.deconv2.bias"] = _np(p["deconv2"]["bias"])
@@ -223,6 +245,40 @@ class _Converter:
         self._put_bn(f"{prefix}.bn3", p["conv_pwl"]["Norm_0"]["BatchNorm_0"],
                      s["conv_pwl"]["Norm_0"]["BatchNorm_0"])
 
+    def resblock2d(self, prefix: str, p, s):
+        for ours, ref in (("Conv2d_0", "conv1"), ("Conv2d_1", "conv2"),
+                          ("Conv2d_2", "conv3"), ("Conv2d_3", "conv4"),
+                          ("Conv2d_4", "shortcut5"), ("Conv2d_5", "shortcut6")):
+            self.conv2d(f"{prefix}{ref}", p[ours], s[ours])
+        for ours, ref in (("ConvTranspose2d_0", "conv5"),
+                          ("ConvTranspose2d_1", "conv6")):
+            self.convt2d(f"{prefix}{ref}", p[ours], s[ours])
+
+    def basic_block(self, prefix: str, p, s):
+        self.conv2d(f"{prefix}conv1", p["Conv2d_0"], s["Conv2d_0"])
+        self.conv2d(f"{prefix}conv2", p["Conv2d_1"], s["Conv2d_1"])
+
+    def drnet(self, prefix: str, p, s):
+        for ours, ref in (("Conv2d_0", "feat_conv"), ("Conv2d_1", "disp_conv"),
+                          ("Conv2d_2", "final_conv")):
+            self.conv2d(f"{prefix}{ref}", p[ours], s[ours])
+        for i in range(6):
+            self.basic_block(f"{prefix}dilated_block.{i}.",
+                             p[f"BasicBlock_{i}"], s[f"BasicBlock_{i}"])
+
+    def spp3d(self, prefix: str, p, s):
+        i = 0
+        while f"pool_conv_{i}" in p:
+            self.conv3d(f"{prefix}pools.{i}", "spatial", p[f"pool_conv_{i}"],
+                        s[f"pool_conv_{i}"])
+            i += 1
+        self.conv3d(f"{prefix}fuse.0", "full", p["fuse_0"], s["fuse_0"])
+        self.conv3d(f"{prefix}fuse.1", "spatial", p["fuse_1"], s["fuse_1"])
+
+    def conv_gru(self, prefix: str, p, s):
+        for gate in ("convz", "convr", "convq"):
+            self.conv2d(f"{prefix}{gate}", p[gate], s[gate])
+
     def backbone(self, p, s, groups):
         self.sd["backbone.conv_stem.weight"] = _np(
             p["conv_stem"]["Conv_0"]["kernel"]).transpose(3, 2, 0, 1)
@@ -249,7 +305,9 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
     from ..models.backbone import V2S_GROUPS
 
     if partial:
-        params, batch_stats = _Partial(params), _Partial(batch_stats)
+        params = _Partial(params)
+    # the convs of a GN, LN or IN norm keep no statistics
+    batch_stats = _Partial(batch_stats)
     conv = _Converter()
     conv.backbone(params["backbone"], batch_stats["backbone"],
                   V2S_GROUPS if groups is None else groups)
@@ -257,5 +315,30 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
         conv.stage(f"aggregation.{which}", which,
                    params["aggregation"][which],
                    batch_stats["aggregation"][which])
+    return _tensors(conv.sd)
+
+
+def _tensors(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, order="C"))
-            for k, v in conv.sd.items() if v is not ABSENT}
+            for k, v in sd.items() if v is not ABSENT}
+
+
+_MODULES = {"ResidualBlock2D": _Converter.resblock2d,
+            "BasicBlock": _Converter.basic_block,
+            "StereoDRNetRefinement": _Converter.drnet,
+            "SPP3D": _Converter.spp3d,
+            "ConvGRU": _Converter.conv_gru}
+
+
+def module_state_dict_from_jax(module: str, params: Dict[str, Any],
+                               batch_stats: Optional[Dict[str, Any]] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The flax variables of one JAX block (``module`` is its class name:
+    ResidualBlock2D, BasicBlock, StereoDRNetRefinement, SPP3D or ConvGRU)
+    -> the state_dict of the port's module of that name."""
+    if module not in _MODULES:
+        raise ValueError(f"no conversion for {module!r}; known: "
+                         f"{sorted(_MODULES)}")
+    conv = _Converter()
+    _MODULES[module](conv, "", params, _Partial(batch_stats or {}))
+    return _tensors(conv.sd)

@@ -1,6 +1,7 @@
 """Component registry: a copy of the JAX package's ``utils/registry.py``
-(the reference's detectron2 ``Registry``).  The port registers its
-datasets in ``DATASET_REGISTRY``.
+(the reference's detectron2 ``Registry``), with its four registries: the
+backbone and the aggregation (``TEMPORALSTEREO``), the prediction heads
+(``SOFTARGMIN``, ``ARGMIN``) and the datasets.
 """
 from __future__ import annotations
 
@@ -37,4 +38,7 @@ class Registry:
         return self._obj_map.keys()
 
 
+BACKBONE_REGISTRY = Registry("BACKBONE")
+AGGREGATION_REGISTRY = Registry("AGGREGATION")
+PREDICTION_REGISTRY = Registry("PREDICTION")
 DATASET_REGISTRY = Registry("DATASET")

@@ -1,7 +1,8 @@
 """Disparity colour maps in numpy: copies of the JAX package's
 ``visualization/disparity.py`` ``disp_to_color`` (the KITTI devkit's
-histogram-equalised map) and ``disp_err_to_colorbar`` (the piecewise
-re-valued jet error map with its optional legend bar)."""
+histogram-equalised map), ``disp_err_to_color`` (the devkit's binned
+error colours) and ``disp_err_to_colorbar`` (the piecewise re-valued jet
+error map with its optional legend bar)."""
 from __future__ import annotations
 
 import numpy as np
@@ -40,6 +41,43 @@ def disp_to_color(disp: np.ndarray, max_disp: float | None = None
         max_disp = np.max(disp)
     x = disp / max_disp
     return disp_map(x.reshape(h * w, 1)).reshape(h, w, 3).astype(np.float32)
+
+
+# KITTI devkit error colours: (lower, upper bound of min(E / 3 px, rel / 5%),
+# r, g, b)
+_ERR_COLS = np.array([
+    [0 / 3.0, 0.1875 / 3.0, 49, 54, 149],
+    [0.1875 / 3.0, 0.375 / 3.0, 69, 117, 180],
+    [0.375 / 3.0, 0.75 / 3.0, 116, 173, 209],
+    [0.75 / 3.0, 1.5 / 3.0, 171, 217, 233],
+    [1.5 / 3.0, 3 / 3.0, 224, 243, 248],
+    [3 / 3.0, 6 / 3.0, 254, 224, 144],
+    [6 / 3.0, 12 / 3.0, 253, 174, 97],
+    [12 / 3.0, 24 / 3.0, 244, 109, 67],
+    [24 / 3.0, 48 / 3.0, 215, 48, 39],
+    [48 / 3.0, np.inf, 165, 0, 38],
+], dtype=np.float64)
+
+
+def disp_err_to_color(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """The KITTI devkit's error colours of [H, W] maps normalised to
+    [0, 1] (scaled by 255 here): the error min(|E| / 3 px, |E| / gt / 5%)
+    binned with inclusive bounds, later bins winning ties; pixels without
+    ground truth stay black -> [H, W, 3] f64 in [0, 1]."""
+    est = np.asarray(est, np.float64) * 255.0
+    gt = np.asarray(gt, np.float64) * 255.0
+    e = np.abs(est - gt)
+    not_empty = gt > 0.0
+    tmp = np.zeros_like(gt)
+    tmp[not_empty] = e[not_empty] / gt[not_empty] / 0.05
+    e = np.minimum(e / 3.0, tmp)
+
+    h, w = gt.shape
+    out = np.zeros((h, w, 3), np.uint8)
+    for col in _ERR_COLS:
+        m = not_empty & (e >= col[0]) & (e <= col[1])
+        out[m] = col[2:]
+    return out.astype(np.float64) / 255.0
 
 
 def _revalue(m: np.ndarray, lower: float, upper: float, start: float,

@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, each held on the CPU:
+"""Five faults of the port against the JAX package, each held on the CPU:
 
 1. The video CLI brings its estimate to the ground truth's resolution as
    the JAX CLI does, with Pillow's bilinear filter (half-pixel centres, a
@@ -16,6 +16,16 @@
    bf16-stored weight is cast to f32 where a layer uses it, as flax casts
    to the compute type; against JAX's ``cast_params_bf16`` then a forward,
    at 2e-3.
+4. The GN, IN and LN norm kinds exist (``nn/layers.py:get_norm`` raised
+   ValueError for them): the tiny model with GN in its FPN and GN, IN and
+   LN in its three stages builds, loads JAX's variables through
+   ``state_dict_from_jax`` (GroupNorm and LayerNorm ``scale/bias``) and
+   streams two frames as JAX does: 2e-3 on the first (single-frame), 5e-3
+   on the second (streamed, tests/test_temporal_parity.py's tolerance).
+5. ``FrozenBN`` normalises with its running statistics in train mode and
+   leaves them unchanged, as flax's ``BatchNorm(use_running_average=True)``
+   (it was a trainable BatchNorm): a train-mode conv + FrozenBN against
+   JAX's at 1e-5, its statistics bit-unchanged.
 """
 import re
 import sys
@@ -32,6 +42,12 @@ from temporalstereo_tpu.cli import video_inference as jax_video_inference
 from temporalstereo_tpu.config import get_cfg as jax_get_cfg
 from temporalstereo_tpu.models import build_model as jax_build_model
 from temporalstereo_tpu.models.backbone import TINY_GROUPS as JAX_TINY
+from temporalstereo_tpu.models.stereo import (
+    backbone_memory_shapes as jax_memory_shapes)
+from temporalstereo_tpu.models.stereo import init_prev_info as jax_init_prev
+from temporalstereo_tpu.models.temporal import (
+    streaming_step as jax_streaming_step)
+from temporalstereo_tpu.nn.layers import Conv3d as JaxConv3d
 from temporalstereo_tpu.serving import cast_params_bf16 as jax_cast_bf16
 from temporalstereo_tpu.training.checkpoint import load_any_weights
 from temporalstereo_tpu.utils.torch_export import save_reference_checkpoint
@@ -39,18 +55,24 @@ from temporalstereo_tpu.utils.torch_export import save_reference_checkpoint
 from temporalstereo_tpu_torch.cli import video_inference
 from temporalstereo_tpu_torch.config import get_cfg
 from temporalstereo_tpu_torch.data.transforms import resize_pil_bilinear
-from temporalstereo_tpu_torch.models import build_model
+from temporalstereo_tpu_torch.models import (backbone_memory_shapes,
+                                             build_model, init_prev_info,
+                                             streaming_step)
+from temporalstereo_tpu_torch.nn.layers import Conv3d
 from temporalstereo_tpu_torch.models.backbone import TINY_GROUPS
 from temporalstereo_tpu_torch.serving import cast_params_bf16
 from temporalstereo_tpu_torch.utils.checkpoint import load_weights
 from temporalstereo_tpu_torch.utils.convert import state_dict_from_jax
 
 from tests.test_torch_cli import _sequence
-from tests.test_torch_model import TINY, _jax_variables, _rel
+from tests.test_torch_model import (TEMPORAL, TINY, _geometry,
+                                    _jax_variables, _rel)
 
 RESIZE_TOL = 1e-5
 ERROR_TXT_TOL = 1e-4
 SINGLE_TOL = 2e-3
+TEMPORAL_TOL = 5e-3
+NORM_TOL = 1e-5
 H, W = 96, 128
 
 
@@ -208,3 +230,92 @@ def test_f32_model_takes_bf16_weights(jax_single):
         rel = _rel(t.numpy(), j)
         assert rel < SINGLE_TOL, f"disparity {i}: rel={rel:.2e}"
     assert not torch.equal(out["disps"][0], full["disps"][0])
+
+
+def test_group_instance_layer_norm_model_matches_jax():
+    """Fault 4: GN in the FPN, GN / IN / LN in the coarse / fine / precise
+    stages; two streamed frames (the second warps the first's state)."""
+    opts = TINY + TEMPORAL + ["MODEL.BACKBONE.NORM", "GN",
+                              "MODEL.AGGREGATION.COARSE.NORM", "GN",
+                              "MODEL.AGGREGATION.FINE.NORM", "IN",
+                              "MODEL.AGGREGATION.PRECISE.NORM", "LN"]
+    jmodel = jax_build_model(jax_get_cfg(opts=opts), dtype=None)
+    variables = _jax_variables(jmodel, H, W, seed=55)
+    assert "GroupNorm_0" in variables["params"]["backbone"]["deconv8_4_0"][
+        "Norm_0"]
+    model = build_model(get_cfg(opts=opts), device="cpu")
+    model.load_state_dict(state_dict_from_jax(
+        variables["params"], variables["batch_stats"], TINY_GROUPS),
+        strict=True)
+    K, baseline, T = (jnp.asarray(a) for a in _geometry(H, W))
+    jprev = jax_init_prev(jmodel, 1, (H, W),
+                          jax_memory_shapes(jmodel.backbone_cfg, (H, W)), 2,
+                          jnp.float32, local_map_channels=0)
+    tprev = init_prev_info(model, 1, (H, W),
+                           backbone_memory_shapes(model.backbone_cfg, (H, W)),
+                           2, local_map_channels=0)
+    rng = np.random.RandomState(56)
+    for f, tol in enumerate((SINGLE_TOL, TEMPORAL_TOL)):
+        left, right = (rng.rand(1, H, W, 3).astype(np.float32)
+                       for _ in range(2))
+        with jax.default_matmul_precision("highest"):
+            jout, jprev = jax.jit(
+                lambda v, l, r, p, warp=f > 0: jax_streaming_step(
+                    jmodel, v, l, r, p, K, baseline, T, warp=warp))(
+                variables, jnp.asarray(left), jnp.asarray(right), jprev)
+        with torch.inference_mode():
+            tout, tprev = streaming_step(
+                model, torch.from_numpy(left), torch.from_numpy(right),
+                tprev, *(torch.tensor(np.asarray(a))
+                         for a in (K, baseline, T)))
+        for i, (j, t) in enumerate(zip(jout["disps"], tout["disps"])):
+            rel = _rel(t.numpy(), j)
+            assert rel < tol, f"frame {f} disparity {i}: rel={rel:.2e}"
+
+
+def test_frozen_batch_norm_stays_frozen_in_train_mode():
+    """Fault 5: a (1,3,3) conv + FrozenBN in train mode against JAX's
+    (train=True, statistics mutable), and a second call: the output equals
+    the first, the running statistics are bit-unchanged."""
+    rng = np.random.RandomState(57)
+    x = rng.randn(2, 3, 6, 7, 16).astype(np.float32)
+    jconv = JaxConv3d(16, (1, 3, 3), 1, (0, 1, 1), use_bias=False,
+                      norm="FrozenBN")
+    variables = jconv.init(jax.random.PRNGKey(0), jnp.asarray(x), True)
+    bn = {"mean": rng.randn(16) * 0.3, "var": rng.rand(16) + 0.5}
+    variables = {
+        "params": {**variables["params"], "Norm_0": {"BatchNorm_0": {
+            "scale": jnp.asarray(rng.rand(16) + 0.5, jnp.float32),
+            "bias": jnp.asarray(rng.randn(16) * 0.1, jnp.float32)}}},
+        "batch_stats": {"Norm_0": {"BatchNorm_0": {
+            k: jnp.asarray(v, jnp.float32) for k, v in bn.items()}}}}
+    with jax.default_matmul_precision("highest"):
+        jy, updates = jconv.apply(variables, jnp.asarray(x), True,
+                                  mutable=["batch_stats"])
+    jstats = updates["batch_stats"]["Norm_0"]["BatchNorm_0"]
+
+    conv = Conv3d(16, 16, (1, 3, 3), 1, (0, 1, 1), bias=False,
+                  norm="FrozenBN")
+    p = variables["params"]
+    conv.load_state_dict({
+        "weight": torch.from_numpy(np.asarray(p["Conv_0"]["kernel"]).transpose(
+            3, 2, 0, 1)[:, :, None].copy()),
+        "norm.weight": torch.tensor(np.asarray(
+            p["Norm_0"]["BatchNorm_0"]["scale"])),
+        "norm.bias": torch.tensor(np.asarray(
+            p["Norm_0"]["BatchNorm_0"]["bias"])),
+        "norm.running_mean": torch.tensor(bn["mean"], dtype=torch.float32),
+        "norm.running_var": torch.tensor(bn["var"], dtype=torch.float32),
+        "norm.num_batches_tracked": torch.zeros((), dtype=torch.long)})
+    before = {k: v.clone() for k, v in conv.norm.state_dict().items()}
+    conv.train()
+    tx = torch.from_numpy(x.transpose(0, 4, 1, 2, 3).copy())
+    outs = [conv(tx).detach() for _ in range(2)]
+    got = outs[0].permute(0, 2, 3, 4, 1).numpy()
+    np.testing.assert_allclose(got, jy, rtol=NORM_TOL, atol=NORM_TOL)
+    assert torch.equal(outs[0], outs[1])
+    for k, v in conv.norm.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    for k in ("mean", "var"):
+        np.testing.assert_array_equal(np.asarray(jstats[k]),
+                                      np.asarray(bn[k], np.float32))

@@ -1,6 +1,8 @@
 """Package rules of the PyTorch port (temporalstereo_tpu_torch): it imports
-neither JAX, flax nor the JAX package; its entry points refuse to fall back
-to the CPU; chip_smoke.py gives no result without a card."""
+neither JAX, flax nor the JAX package, and opens nothing of the JAX
+package's ``native/`` directory (its C++ lives in the package); its entry
+points refuse to fall back to the CPU; chip_smoke.py gives no result
+without a card."""
 import ast
 import os
 import pathlib
@@ -34,6 +36,32 @@ def test_no_jax_imports(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _path_strings(path):
+    """String constants of a module other than docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n.value) for n in ast.walk(tree) if isinstance(n, ast.Expr)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_jax_native_directory(path):
+    bad = [v for v in _path_strings(path)
+           if v == "native" or "native/" in v or "libtsnative.so" in v]
+    assert not bad, f"{path.name} names {bad}"
+
+
+def test_native_sources_live_in_the_package():
+    sources = sorted(p.relative_to(REPO) for p in PACKAGE.rglob("*.c*")
+                     if p.suffix in (".cpp", ".cu", ".cuh"))
+    assert pathlib.Path("temporalstereo_tpu_torch/data/csrc/tsnative.cpp") \
+        in sources
 
 
 def test_package_imports_without_jax(tmp_path):
