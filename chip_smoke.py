@@ -119,7 +119,32 @@ non-zero exit code and no result line:
      loader (2 process workers, native) with make_eval_step over 8
      samples of Paeth PNGs: wait and step per sample, the step's share of
      the loop once the batches the pool held ahead are consumed;
- 18. one JSON line listing every kernel, then the result line.
+ 18. data parallelism (torch.distributed ranks; every kernel is built
+     in phase 2, before a rank starts): (a) two gloo ranks sharing the card
+     (NCCL refuses two ranks on one device; gloo reduces CUDA tensors
+     through the host), the tiny f32 model with TF32 off, one training
+     step (T=3, global B=2, a sample a rank) and one eval step of 3
+     samples with a padded duplicate, against one process at B=2 (losses,
+     grad_norm, gradients, parameters, BatchNorm statistics, eval metrics
+     and weight, within DP_TOL; the ranks bit-equal); (b) two gloo ranks at
+     full width (kitti2015-multi, v2s, bf16, 320x1184, T=11, global B=4),
+     each sample's images scaled by its own factor, 2 steps: the stem
+     BatchNorm's running statistics against one process at B=4 (within
+     DP_STEM_TOL), finite, the ranks bit-equal; the first step's loss
+     terms and every statistic reported beside one process's own spread
+     (the same step again, and with its samples reordered); each rank's
+     step ms, peak memory and the gradient bucket's all-reduce alone
+     (gloo through the host); (c) python -m
+     temporalstereo_tpu_torch.cli.train --multihost at world size 1 under
+     NCCL (kitti2015-multi, FAST_DEV_RUN, a synthetic KITTI 2015 split:
+     finite tables, one checkpoint, exact launches), then in this process
+     the mesh's step against the plain one over 2 steps (the first step's
+     loss terms gated at DP_NCCL_TOL, bit-equality reported; the second
+     reported beside the plain step against itself), step ms of both and
+     phase 6's, the collective kernels of one profiled step (none) and the
+     gradient bucket all-reduced alone through NCCL (device time and CUDA
+     events);
+ 19. one JSON line listing every kernel, then the result line.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -2692,6 +2717,524 @@ def phase_native(torch, port, kernels, card, build_info):
     return launches
 
 
+DP_WORLD = 2
+DP_DEADLINE = 300               # seconds for a pair of phase 18 ranks
+# phase 18 (a), two gloo ranks on the card against one process, tiny f32,
+# TF32 off: losses and eval metrics relative, grad_norm relative, each
+# gradient of the model's largest gradient, each parameter and statistic
+# of its tensor's largest value (statistics plus 1e-6 of the largest).
+# The CPU test (tests/test_torch_parallel.py) holds 1e-5 / 1e-6 / 1e-4 /
+# 1e-4 / 1e-5 there; on the card a rank's B=1 and one process's B=2 may
+# also run other cuDNN algorithms
+DP_TOL = {"loss": 1e-4, "eval": 1e-4, "grad_norm": 1e-3, "grad": 1e-3,
+          "param": 1e-4, "stats": 1e-4}
+# (b) at full width, bf16: the stem BatchNorm's running statistics of their
+# max.  The first step of this random-weight 11-frame window is itself
+# ill-conditioned (one process against itself with its 4 samples
+# reordered moved its loss terms by up to 0.78): its loss terms and the
+# deeper statistics are reported beside that spread, not gated
+DP_STEM_TOL = 1e-3
+# (c) the first NCCL step's loss terms against the plain one (the same code
+# at world size 1: its forward is deterministic); the second step's are
+# reported beside the plain step's own spread, since cuDNN's backward is not
+# deterministic and this random-weight window amplifies it
+DP_NCCL_TOL = 2e-3
+DP_VAL_SAMPLES = 2
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(tensors):
+    """sha256 of a dict of tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(tensors[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cpu(tree):
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def _floats(tree):
+    return {k: float(v) for k, v in tree.items()}
+
+
+def _tiny_dp_step(torch, port, kernels, job, mesh=None):
+    """Phase 18 (a)'s training step and eval step of the tiny model, on
+    ``mesh``'s shard of the job's global batches (one process: the whole
+    train batch and the eval batch's real samples)."""
+    from temporalstereo_tpu_torch.parallel import shard_batch
+    from temporalstereo_tpu_torch.training import make_eval_step
+    from temporalstereo_tpu_torch.training.optim import chain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = port.get_cfg(KITTI, opts=job["opts"])
+    model = port.build_model(cfg, device="cuda")
+    model.load_state_dict(job["state_dict"])
+    params, stats = port.master_copies(model)
+    state = port.TrainState.create(
+        params, stats, chain(_stash(torch), port.build_optimizer(cfg, 10)))
+    step = port.make_train_step(model, cfg, mesh=mesh)
+    evaluate = make_eval_step(model, cfg, mesh=mesh)
+    if mesh is None:
+        train = {k: v.cuda() for k, v in job["train"].items()}
+        evaluated = {k: v.cuda() for k, v in job["eval_single"].items()}
+    else:
+        train = shard_batch(mesh, job["train"])
+        evaluated = shard_batch(mesh, job["eval"])
+    kernels.reset_launches()
+    state, metrics = step(state, train)
+    em = evaluate(evaluated)
+    torch.cuda.synchronize()
+    return {"metrics": _floats(metrics), "grads": _cpu(state.opt_state[0]),
+            "params": _cpu(state.params), "stats": _cpu(state.batch_stats),
+            "eval": _floats(em), "launches": dict(kernels.LAUNCHES)}
+
+
+def _full_dp_steps(torch, port, kernels, job, mesh):
+    """Phase 18 (b) on one rank: kitti2015-multi from seed 0, ``steps``
+    steps on this rank's shard of the seeded global batch."""
+    import torch.distributed as dist
+
+    from temporalstereo_tpu_torch.parallel import shard_batch
+
+    cfg = port.get_cfg(KITTI)
+    t = len(cfg.DATA.TRAIN.FRAME_IDXS)
+    h, w = cfg.DATA.TRAIN.HEIGHT, cfg.DATA.TRAIN.WIDTH
+    model = port.build_model(cfg, device="cuda", seed=0)
+    params, stats = port.master_copies(model)
+    out = {"digest": _digest(params)}
+    state = port.TrainState.create(params, stats,
+                                   port.build_optimizer(cfg, 1000))
+    step = port.make_train_step(model, cfg, mesh=mesh)
+    local = shard_batch(mesh, _dp_full_batch(torch, t, job["global_batch"],
+                                             h, w, "cpu"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out["metrics"], out["step_s"] = [], []
+    for i in range(job["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, local)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["metrics"].append(_floats(metrics))
+        if i == 0:
+            out["stats"] = _cpu(state.batch_stats)
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["final"] = _digest(state.params)
+    # the step's gradient bucket, all-reduced alone through gloo
+    flat = torch.zeros(sum(p.numel() for p in params.values()),
+                       device="cuda")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["bucket_ms"], out["bucket_mb"] = ([round(1e3 * s, 2) for s in secs],
+                                          flat.numel() * 4 / 2 ** 20)
+    return out
+
+
+def _dp_rank(rank, world, port_no, directory, which):
+    """One rank of phase 18, a spawned process: joins a gloo group on the
+    one card through the port's ``init_distributed`` (NCCL refuses two
+    ranks on one device), runs job ``which`` on its shard and saves what
+    it computed under ``directory``."""
+    import datetime
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port_no))
+    import torch
+    import torch.distributed as dist
+
+    import temporalstereo_tpu_torch as port
+    from temporalstereo_tpu_torch import kernels
+    from temporalstereo_tpu_torch.parallel import (init_distributed,
+                                                   make_data_mesh)
+
+    directory = pathlib.Path(directory)
+    device = init_distributed("cuda:0", backend="gloo",
+                              timeout=datetime.timedelta(seconds=120))
+    try:
+        job = torch.load(directory / f"{which}.pt", weights_only=False)
+        mesh = make_data_mesh(job["global_batch"], world, device)
+        run = _tiny_dp_step if which == "tiny" else _full_dp_steps
+        out = run(torch, port, kernels, job, mesh)
+        out["backend"] = dist.get_backend()
+        torch.save(out, directory / f"{which}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(torch, directory, which):
+    """Phase 18's two ranks of job ``which`` -> what each computed; both
+    killed at the deadline, and any rank's failure fails the phase."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port_no = _free_port()
+    procs = [ctx.Process(target=_dp_rank,
+                         args=(r, DP_WORLD, port_no, str(directory), which))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    t_end = time.time() + DP_DEADLINE
+    try:
+        for p in procs:
+            p.join(max(t_end - time.time(), 1))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if late:
+        raise AssertionError(f"phase 18 {which}: ranks {late} passed their "
+                             f"{DP_DEADLINE} s deadline")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"phase 18 {which}: rank exit codes {codes}")
+    return [torch.load(directory / f"{which}_rank{r}.pt", weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def _sum_launches(outs):
+    return {k: sum(o["launches"][k] for o in outs)
+            for k in outs[0]["launches"]}
+
+
+def _max_rel_tree(ours, ref, floor=0.0):
+    """max over tensors of max|d| / (max|ref| + floor)."""
+    return max(float((ours[k] - v).abs().max())
+               / max(float(v.abs().max()) + floor, 1e-30)
+               for k, v in ref.items())
+
+
+def _dp_tiny(torch, port, kernels, tmp):
+    """Phase 18 (a) -> the launches of both ranks."""
+    from temporalstereo_tpu_torch.parallel import TIME_MAJOR_KEYS
+
+    opts = TINY_TRAIN + ["OPTIMIZER.RMSPROP.LR", "1e-6"]
+    model = port.build_model(port.get_cfg(KITTI, opts=opts), device="cpu",
+                             seed=3)
+    randomize_weights(torch, model, seed=41)
+    geometry = dict(focal=30.0, baseline=2.0, motion=(0.03, -0.05))
+    # 3 real eval samples over 2 ranks: rank 1's second is a duplicate
+    three = train_batch(torch, 3, 3, 96, 128, "cpu", seed=7, **geometry)
+    order = [0, 2, 1, 1]
+    evaluated = {k: v[:, order] if k in TIME_MAJOR_KEYS else v[order]
+                 for k, v in three.items()}
+    evaluated["pad_mask"] = torch.tensor([1, 1, 1, 0])
+    job = {"global_batch": DP_WORLD, "opts": opts,
+           "state_dict": model.state_dict(),
+           "train": train_batch(torch, 3, DP_WORLD, 96, 128, "cpu", seed=6,
+                                **geometry),
+           "eval": evaluated, "eval_single": three}
+    torch.save(job, tmp / "tiny.pt")
+    single = _tiny_dp_step(torch, port, kernels, job)
+    ranks = _run_ranks(torch, tmp, "tiny")
+    a, b = ranks
+    equal = (a["metrics"] == b["metrics"] and a["eval"] == b["eval"]
+             and all(torch.equal(v, b[part][k]) for part in
+                     ("grads", "params", "stats") for k, v in a[part].items()))
+    if not equal or {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError("phase 18 (a): the two ranks' states differ "
+                             f"or not gloo ({[r['backend'] for r in ranks]})")
+    gaps = {"loss": max(abs(a["metrics"][k] - v) / abs(v)
+                        for k, v in single["metrics"].items()
+                        if k != "grad_norm"),
+            "grad_norm": abs(a["metrics"]["grad_norm"]
+                             - single["metrics"]["grad_norm"])
+            / single["metrics"]["grad_norm"],
+            "eval": max(abs(a["eval"][k] - v) / max(abs(v), 1e-6)
+                        for k, v in single["eval"].items()),
+            "param": _max_rel_tree(a["params"], single["params"]),
+            # floored as in (b): a zero batch mean is rounding noise
+            "stats": _max_rel_tree(a["stats"], single["stats"], 1e-6 * max(
+                float(v.abs().max()) for v in single["stats"].values()))}
+    top = max(float(g.abs().max()) for g in single["grads"].values())
+    gaps["grad"] = max(float((a["grads"][k] - g).abs().max())
+                       for k, g in single["grads"].items()) / top
+    want = _fit_launches(3, 1, 1, 0)
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"phase 18 (a) launches "
+                             f"{[r['launches'] for r in ranks]} != {want} "
+                             "a rank")
+    if a["eval"]["weight"] != 3.0 or single["eval"]["weight"] != 3.0:
+        raise AssertionError(f"phase 18 (a): eval weight {a['eval']['weight']}"
+                             f" / {single['eval']['weight']}, want 3")
+    log(18, f"(a) two gloo ranks on one card, tiny f32 T=3, global B=2 (1 "
+        f"a rank), TF32 off, against one process at B=2: the ranks "
+        f"bit-equal; gaps {({k: float(f'{v:.3g}') for k, v in gaps.items()})}"
+        f" (tolerances {DP_TOL}); eval over 3 samples with one padded "
+        f"duplicate: weight {a['eval']['weight']:g}; launches a rank "
+        f"{a['launches']}")
+    failed = [k for k, v in gaps.items() if not v <= DP_TOL[k]]
+    if failed:
+        raise AssertionError(f"phase 18 (a): {failed} past the tolerance")
+    return _sum_launches(ranks)
+
+
+def _dp_full_batch(torch, t, b, h, w, device):
+    """Phase 6's seeded batch with each sample's images scaled by its own
+    factor (0.4 to 1.3), so that a BatchNorm's statistics over one rank's
+    shard are far from those over the global batch."""
+    batch = train_batch(torch, t, b, h, w, "cpu")
+    scale = torch.linspace(0.4, 1.3, b).view(1, b, 1, 1, 1)
+    for k in ("left", "right"):
+        batch[k] = batch[k] * scale
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _dp_full(torch, port, kernels, card, tmp):
+    """Phase 18 (b) -> the launches of both ranks."""
+    from temporalstereo_tpu_torch.parallel import TIME_MAJOR_KEYS
+
+    cfg = port.get_cfg(KITTI)
+    t, b = len(cfg.DATA.TRAIN.FRAME_IDXS), cfg.DATA.TRAIN.BATCH_SIZE
+    h, w = cfg.DATA.TRAIN.HEIGHT, cfg.DATA.TRAIN.WIDTH
+    model = port.build_model(cfg, seed=0)
+    params, stats = port.master_copies(model)
+    digest = _digest(params)
+    state = port.TrainState.create(params, stats,
+                                   port.build_optimizer(cfg, 1000))
+    step = port.make_train_step(model, cfg)
+    batch = _dp_full_batch(torch, t, b, h, w, "cuda")
+    # one process against itself, and with its samples in another order
+    order = list(range(b // 2, b)) + list(range(b // 2))
+    shuffled = {k: v[:, order] if k in TIME_MAJOR_KEYS else v[order]
+                for k, v in batch.items()}
+    runs = [step(state, batch), step(state, batch), step(state, shuffled)]
+    single = {"metrics": _floats(runs[0][1]),
+              "stats": _cpu(runs[0][0].batch_stats)}
+
+    def loss_gaps(metrics):
+        return {k: abs(float(metrics[k]) - v) / abs(v)
+                for k, v in single["metrics"].items() if "loss" in k}
+    spread = [max(loss_gaps(r[1]).values()) for r in runs[1:]]
+    del model, params, stats, state, step, batch, shuffled, runs
+    torch.cuda.empty_cache()
+    torch.save({"global_batch": b, "steps": 2}, tmp / "full.pt")
+    ranks = _run_ranks(torch, tmp, "full")
+    if any(r["digest"] != digest for r in ranks):
+        raise AssertionError("phase 18 (b): a rank's seeded weights differ "
+                             "from this process's")
+    if ranks[0]["final"] != ranks[1]["final"]:
+        raise AssertionError("phase 18 (b): the ranks' parameters differ "
+                             "after the steps")
+    gaps = loss_gaps(ranks[0]["metrics"][0])
+    stem = {k: v for k, v in single["stats"].items()
+            if k.startswith("backbone.bn1.")}
+    stem_gap = _max_rel_tree(ranks[0]["stats"], stem)
+    # a bias-free convolution's output ahead of a train-mode BatchNorm has
+    # a batch mean of exactly 0 in exact arithmetic: rounding noise, floored
+    top = max(float(v.abs().max()) for v in single["stats"].values())
+    stats_gap = _max_rel_tree(ranks[0]["stats"], single["stats"], 1e-6 * top)
+    finite = all(math.isfinite(v) for r in ranks for m in r["metrics"]
+                 for v in m.values())
+    want = _fit_launches(t, 2, 0, 0)
+    log(18, f"(b) two gloo ranks on one card, kitti2015-multi v2s bf16 "
+        f"{h}x{w} T={t}, global B={b} ({b // DP_WORLD} a rank, each "
+        f"sample's images scaled by 0.4-1.3), 2 steps from seed 0 against "
+        f"one process at B={b}: the stem BatchNorm's running statistics "
+        f"{stem_gap:.3g} of their max (tol {DP_STEM_TOL}), every "
+        f"statistic {stats_gap:.3g}; first step loss terms "
+        f"{max(gaps.values()):.3g} apart "
+        f"({({k: float(f'{v:.3g}') for k, v in gaps.items()})}) where one "
+        f"process against itself moves them {spread[0]:.3g} and with its "
+        f"samples reordered {spread[1]:.3g}; the ranks' parameters "
+        f"bit-equal, finite {finite}; gloo-through-host figures (they say "
+        f"nothing of NCCL): step ms by rank "
+        f"{[[round(1e3 * s, 2) for s in r['step_s']] for r in ranks]}, "
+        f"peak GiB by rank {[round(r['peak_gib'], 2) for r in ranks]}, the "
+        f"gradient bucket's all-reduce alone ({ranks[0]['bucket_mb']:.1f} "
+        f"MB f32) ms by rank {[r['bucket_ms'] for r in ranks]}; launches a "
+        f"rank {ranks[0]['launches']} on {card}")
+    if (stem_gap > DP_STEM_TOL or not finite
+            or any(r["launches"] != want for r in ranks)):
+        raise AssertionError(f"phase 18 (b) failed (launches "
+                             f"{[r['launches'] for r in ranks]}, want "
+                             f"{want} a rank)")
+    return _sum_launches(ranks)
+
+
+def _dp_nccl(torch, port, kernels, card, tmp):
+    """Phase 18 (c): world size 1 under NCCL -> the launches of the train
+    CLI's --multihost run."""
+    import os
+    import re
+
+    import torch.distributed as dist
+
+    from temporalstereo_tpu_torch.data.synthetic import write_kitti2015_split
+    from temporalstereo_tpu_torch.parallel import (init_distributed,
+                                                   make_data_mesh)
+    from temporalstereo_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+
+    cfg = port.get_cfg(KITTI)
+    t, b = len(cfg.DATA.TRAIN.FRAME_IDXS), cfg.DATA.TRAIN.BATCH_SIZE
+    h, w = cfg.DATA.TRAIN.HEIGHT, cfg.DATA.TRAIN.WIDTH
+    train_ann = write_kitti2015_split(str(tmp / "train"), b, EVAL_FRAMES)
+    val_ann = write_kitti2015_split(str(tmp / "val"), DP_VAL_SAMPLES,
+                                    EVAL_FRAMES, seed=1)
+    opts = ["LOG_DIR", str(tmp / "exps"), "TRAINER.FAST_DEV_RUN", "True",
+            "TRAINER.CHECK_VAL_EVERY_N_EPOCHS", "1",
+            "DATA.TRAIN.DATA_ROOT", str(tmp / "train"),
+            "DATA.TRAIN.ANNFILE", train_ann]
+    for phase in ("VAL", "TEST"):
+        opts += [f"DATA.{phase}.DATA_ROOT", str(tmp / "val"),
+                 f"DATA.{phase}.ANNFILE", val_ann]
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "temporalstereo_tpu_torch.cli.train",
+         "--multihost", "--config-file", KITTI, *opts],
+        cwd=pathlib.Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli.train --multihost failed "
+                             f"({out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-6000:]}")
+    cli = _train_summary(out.stdout)
+    exp = tmp / "exps" / cfg.TRAINER.NAME / cfg.TRAINER.VERSION
+    saved = CheckpointManager(str(exp / "checkpoints")).all_steps()
+    tables = re.findall(r"disparity_0/all +([-0-9. ]+)", out.stdout)
+    # one step (SWA starts at 0.8 of 16 epochs: not reached), the val and
+    # test samples, one image log each
+    want = _fit_launches(t, 1, 2 * DP_VAL_SAMPLES, 2)
+    if (cli["launches"] != want or saved != [1] or len(tables) != 2
+            or not all(math.isfinite(float(x)) for row in tables
+                       for x in row.split())):
+        raise AssertionError(f"cli.train --multihost: launches "
+                             f"{cli['launches']} (want {want}), checkpoints "
+                             f"{saved}, tables {tables}")
+    log(18, f"(c) python -m temporalstereo_tpu_torch.cli.train --multihost "
+        f"(RANK 0, WORLD_SIZE 1, NCCL), kitti2015-multi FAST_DEV_RUN on a "
+        f"synthetic KITTI 2015 split ({b} train, {DP_VAL_SAMPLES} val "
+        f"samples): finite tables, checkpoints {saved}, launches "
+        f"{cli['launches']}, step ms {_ms(cli, 'step_s')}, process wall "
+        f"{wall:.1f} s")
+
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    try:
+        device = init_distributed()
+        mesh = make_data_mesh(b, -1, device)
+        model = port.build_model(cfg, seed=0)
+        params, stats = port.master_copies(model)
+        batch = train_batch(torch, t, b, h, w, "cuda")
+        plain = port.make_train_step(model, cfg)
+        runs = {}
+        for name, step in (("plain", plain), ("plain again", plain),
+                           ("nccl", port.make_train_step(model, cfg,
+                                                         mesh=mesh))):
+            state = port.TrainState.create(params, stats,
+                                           port.build_optimizer(cfg, 1000))
+            metrics, secs = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                metrics.append(_floats(m))
+            runs[name] = {"metrics": metrics, "secs": secs,
+                          "params": state.params}
+
+        def apart(a, b, i):
+            """(loss terms' largest relative gap at step i, whether the
+            two runs' metrics and parameters after step i are bit-equal)"""
+            ma, mb = runs[a]["metrics"][i], runs[b]["metrics"][i]
+            gap = max(abs(mb[k] - v) / abs(v) for k, v in ma.items()
+                      if "loss" in k)
+            same = ma == mb and (i == 0 or all(
+                torch.equal(v, runs[b]["params"][k])
+                for k, v in runs[a]["params"].items()))
+            return gap, same
+        first, second = apart("plain", "nccl", 0), apart("plain", "nccl", 1)
+        own = apart("plain", "plain again", 1)
+        # the NCCL step (the loop's last) once more, profiled
+        events = _device_events(lambda: step(state, batch), 1)
+        reduce_kernels = [e for e in events if "nccl" in e.name.lower()
+                          or "allreduce" in e.name.lower()]
+        flat = torch.zeros(sum(p.numel() for p in params.values()),
+                           device=device)
+        bucket_ms, bucket_events = call_device_ms(
+            lambda: dist.all_reduce(flat), 5)
+        bucket_wall = cuda_ms(lambda: dist.all_reduce(flat), iters=10)
+        log(18, f"(c) in this process: NCCL group of one rank "
+            f"(backend {dist.get_backend()}, mesh active {mesh.active}), 2 "
+            f"steps of kitti2015-multi B={b} from seed 0, the mesh's step "
+            f"against the plain one: first step loss terms {first[0]:.3g} "
+            f"apart (tol {DP_NCCL_TOL}), bit-equal {first[1]}; second step "
+            f"{second[0]:.3g} apart, bit-equal {second[1]}, where the plain "
+            f"step against itself is {own[0]:.3g} apart, bit-equal {own[1]} "
+            f"(cuDNN's backward is not deterministic); step ms NCCL "
+            f"{[round(1e3 * x, 2) for x in runs['nccl']['secs']]}, plain "
+            f"{[round(1e3 * x, 2) for x in runs['plain']['secs']]} and "
+            f"{[round(1e3 * x, 2) for x in runs['plain again']['secs']]}, "
+            f"phase 6's plain "
+            f"{[round(1e3 * x, 2) for x in MEASURED['train_step_s']]}; "
+            f"collective kernels in one profiled step: {len(reduce_kernels)} "
+            f"(every reduction is the identity at world size 1); the "
+            f"gradient bucket ({flat.numel() * 4 / 2 ** 20:.1f} MB f32) "
+            f"all-reduced alone through NCCL: {fmt_ms(bucket_ms)} of device "
+            f"time in {bucket_events} device events a call, "
+            f"{bucket_wall:.4f} ms a call between CUDA events, on {card}")
+        if first[0] > DP_NCCL_TOL or reduce_kernels or not all(
+                math.isfinite(v) for r in runs.values()
+                for m in r["metrics"] for v in m.values()):
+            raise AssertionError("phase 18 (c): the NCCL step failed")
+        del model, params, stats, batch, runs, state, flat
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+                  "MASTER_PORT"):
+            os.environ.pop(k, None)
+        torch.cuda.empty_cache()
+    return cli["launches"]
+
+
+def phase_data_parallel(torch, port, kernels, card):
+    """Phase 18: data parallelism.  (a) two gloo ranks on the one card
+    against one process, the tiny model; (b) the same at full width; (c)
+    the train CLI with --multihost at world size 1 under NCCL, and the
+    mesh's step against the plain one in this process.  -> the launches
+    of the three paths."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        launches = (_dp_tiny(torch, port, kernels, tmp),
+                    _dp_full(torch, port, kernels, card, tmp),
+                    _dp_nccl(torch, port, kernels, card, tmp))
+    log(18, f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -2799,6 +3342,9 @@ def main():
     launches["surface"] = phase_surface(torch, port, kernels, card)
     launches["eval_native"] = phase_native(torch, port, kernels, card,
                                            native_info)
+    (launches["train_dp_gloo2"], launches["train_dp_gloo2_full"],
+     launches["fit_multihost"]) = phase_data_parallel(torch, port, kernels,
+                                                      card)
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Default configuration tree: the subset of the JAX package's
 ``config/defaults.py`` that the port reads (``models.build_model``, the
 training and evaluation steps, the datasets and loaders, the trainer:
-MODEL, DATA, CHECKPOINT, TRAINER, TPU.HOST_PREFETCH, TPU.REMAT, OPTIMIZER,
-SCHEDULER, VAL), with the same keys and default values.
+MODEL, DATA, CHECKPOINT, TRAINER, TPU.HOST_PREFETCH, TPU.REMAT,
+TPU.MESH.DATA, OPTIMIZER, SCHEDULER, VAL), with the same keys and default
+values.
 """
 from __future__ import annotations
 
@@ -72,6 +73,10 @@ def get_default_config() -> CN:
     # batches copied to the card ahead of the running step; 0 disables
     _C.TPU = CN()
     _C.TPU.HOST_PREFETCH = 2
+    # ranks of a --multihost run (parallel/mesh.py:make_data_mesh): above 0
+    # it must equal the number launched; -1 takes every rank
+    _C.TPU.MESH = CN()
+    _C.TPU.MESH.DATA = -1
     # recompute each gradient-carrying frame's activations in the backward
     # (torch.utils.checkpoint, models/temporal.py): the BPTT memory lever
     _C.TPU.REMAT = False

@@ -6,14 +6,20 @@ width ratio, then max-pooled when sparse, average-pooled when dense), pixels
 with ``START_DISP < gt < MAX_DISP / scale`` count, and a level without any
 such pixel falls back to the masked absolute error's mean (zero), as the
 reference's empty-mask branch does.  Disparities are [B, H, W, 1], f32.
+
+With a ``mesh`` of more than one rank, the valid-pixel count and the
+fallback's mean are taken over the global batch: each rank's level loss
+is its own sum over the global count, so the ranks' losses sum to the loss
+of the global batch and their gradients sum to its gradient.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from ..ops.interpolate import adaptive_avg_pool2d, adaptive_max_pool2d
+from ..parallel.mesh import DataMesh, global_sum, mean_share
 
 
 def smooth_l1(diff: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -38,20 +44,22 @@ class DispSmoothL1Loss:
     def __init__(self, max_disp: int = 192, start_disp: int = 0,
                  global_weight: float = 1.0,
                  weights: Union[Sequence[float], None] = None,
-                 sparse: bool = False):
+                 sparse: bool = False, mesh: Optional[DataMesh] = None):
         self.max_disp = max_disp
         self.start_disp = start_disp
         self.global_weight = global_weight
         self.weights = weights
         self.sparse = sparse
+        self.mesh = mesh
 
     @classmethod
-    def from_config(cls, node) -> "DispSmoothL1Loss":
+    def from_config(cls, node, mesh: Optional[DataMesh] = None
+                    ) -> "DispSmoothL1Loss":
         return cls(max_disp=node.get("MAX_DISP", 192),
                    start_disp=node.get("START_DISP", 0),
                    global_weight=node.get("GLOBAL_WEIGHT", 1.0),
                    weights=node.get("WEIGHTS", None),
-                   sparse=node.get("SPARSE", False))
+                   sparse=node.get("SPARSE", False), mesh=mesh)
 
     def loss_per_level(self, est: torch.Tensor, gt: torch.Tensor
                        ) -> torch.Tensor:
@@ -59,10 +67,10 @@ class DispSmoothL1Loss:
         scaled_gt, scale = _rescale_gt(gt, h, w, self.sparse)
         maskf = ((scaled_gt > self.start_disp)
                  & (scaled_gt < self.max_disp / scale)).to(est.dtype)
-        n = maskf.sum()
+        n = global_sum(maskf.sum(), self.mesh)
         masked = ((smooth_l1(est - scaled_gt) * maskf).sum()
                   / torch.clamp(n, min=1.0))
-        fallback = (torch.abs(est - scaled_gt) * maskf).mean()
+        fallback = mean_share(torch.abs(est - scaled_gt) * maskf, self.mesh)
         return torch.where(n >= 1.0, masked, fallback)
 
     def __call__(self, est_disps, gt: torch.Tensor

@@ -23,6 +23,7 @@ import torch.nn as nn
 from ..ops.interpolate import resize_bilinear
 from ..ops.softsplat import softsplat
 from ..ops.warp import project_to_3d
+from ..parallel.mesh import DataMesh, global_mean
 from .aggregation import CostMemory, TemporalStereoAggregation
 from .backbone import V2S_GROUPS, TemporalStereoBackbone
 
@@ -127,20 +128,27 @@ def _downscale_K(K: torch.Tensor, factor: float) -> torch.Tensor:
                      dim=1)
 
 
-def _splat_metric(prev_disp: torch.Tensor) -> torch.Tensor:
-    """Disparity minus its global mean, clamped: nearer pixels win."""
-    return torch.clamp(prev_disp - torch.mean(prev_disp), -EXPMAX, EXPMAX)
+def _splat_metric(prev_disp: torch.Tensor,
+                  mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """Disparity minus its mean over the (global) batch, clamped: nearer
+    pixels win."""
+    return torch.clamp(prev_disp - global_mean(prev_disp, mesh), -EXPMAX,
+                       EXPMAX)
 
 
 def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
                      T_past_to_now: torch.Tensor, full_size: Tuple[int, int],
-                     use_past_cost: bool, local_map_size: int) -> PrevInfo:
+                     use_past_cost: bool, local_map_size: int,
+                     mesh: Optional[DataMesh] = None) -> PrevInfo:
     """Warp the carried state into the current camera (f32).
 
     K [B, 3, 3] full-resolution intrinsics, baseline [B], T_past_to_now
     [B, 4, 4].  The cost memory and the local map share the 1/8 grid, the
     rigid flow and the splat weights, so the update is one stacked
-    ``project_to_3d`` and one softmax splat.
+    ``project_to_3d`` and one softmax splat.  The splat's metric is the
+    disparity less its mean over the batch: with a ``mesh`` of more than
+    one rank, over the global batch (``parallel/mesh.py:global_mean``), as
+    JAX takes it under its SPMD partitioner.
     """
     if not use_past_cost and local_map_size <= 0:
         return prev
@@ -189,8 +197,8 @@ def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
     if local_map_size > 0:
         splat_in.append(updated[..., 1 + k:])
     # nothing that reaches the splat carries a gradient (JAX stereo.py:239)
-    warped = softsplat(torch.cat(splat_in, dim=-1), flow, _splat_metric(pd),
-                       mode="softmax")
+    warped = softsplat(torch.cat(splat_in, dim=-1), flow,
+                       _splat_metric(pd, mesh), mode="softmax")
 
     new_cost_memory = prev.cost_memory
     if use_past_cost:

@@ -35,14 +35,15 @@ def chained_poses(T_cam: torch.Tensor, inv_T: torch.Tensor) -> torch.Tensor:
 
 
 def _frame(model: TemporalStereoNet, left, right, prev: Optional[PrevInfo],
-           K, baseline, T_past_to_now, warp: Optional[bool]):
+           K, baseline, T_past_to_now, warp: Optional[bool], mesh=None):
     if prev is not None:
         if warp is None:
             warp = prev.has_memory
         if warp:
             prev = update_prev_info(prev, K, baseline, T_past_to_now,
                                     tuple(left.shape[1:3]),
-                                    model.use_past_cost, model.local_map_size)
+                                    model.use_past_cost, model.local_map_size,
+                                    mesh)
     return model(left, right, prev)
 
 
@@ -88,7 +89,7 @@ def _remat(model: TemporalStereoNet, train: bool):
 def multi_frame_forward(model: TemporalStereoNet,
                         batch: Dict[str, torch.Tensor], train: bool = False,
                         previous_with_gradient: bool = False,
-                        remat: bool = False):
+                        remat: bool = False, mesh=None):
     """Run the temporal window -> (outputs of the final frame, final state).
 
     By default the past frames run in eval mode without gradients (their
@@ -108,6 +109,11 @@ def multi_frame_forward(model: TemporalStereoNet,
     which keeps no activations (JAX's remat there only stops XLA from
     buffering a dead backward), and the final frame's backward needs its
     activations either way.
+
+    ``mesh`` (``parallel/mesh.py``): with more than one rank, ``batch`` is
+    this rank's shard, and the temporal update's splat metric takes its
+    mean over the global batch (the BatchNorms reduce as
+    ``synchronise_batch_norms`` set them).
     """
     left, right = batch["left"], batch["right"]
     t, b, full_h, full_w, _ = left.shape
@@ -134,7 +140,7 @@ def multi_frame_forward(model: TemporalStereoNet,
                 if i > 0:
                     prev = update_prev_info(
                         prev, K, baseline, t_p2n[i], (full_h, full_w),
-                        model.use_past_cost, model.local_map_size)
+                        model.use_past_cost, model.local_map_size, mesh)
                 outputs, prev = forward(left[i], right[i], prev)
                 all_outputs.append(outputs)
             return all_outputs, prev
@@ -143,9 +149,9 @@ def multi_frame_forward(model: TemporalStereoNet,
         with torch.no_grad():
             for i in range(t - 1):
                 _, prev = _frame(model, left[i], right[i], prev, K, baseline,
-                                 t_p2n[i], warp=i > 0)
+                                 t_p2n[i], warp=i > 0, mesh=mesh)
         model.train(train)
         return _frame(model, left[-1], right[-1], prev, K, baseline,
-                      t_p2n[-1], warp=t > 1)
+                      t_p2n[-1], warp=t > 1, mesh=mesh)
     finally:
         model.train(was_training)

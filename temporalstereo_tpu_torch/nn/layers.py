@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import DataMesh, all_reduce_sum
+
 Activation = Union[str, Sequence, None]
 BN_EPS = 1e-5
 _RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
@@ -96,9 +98,19 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     in f32 whatever the input type, the variance in two passes.  Weights and
     statistics may stay f32 under a bf16 input; the output takes the input's
     type.  Inside ``recomputing()`` train mode updates nothing.
+
+    With ``mesh`` set to a mesh of more than one rank
+    (``synchronise_batch_norms``), train mode takes the statistics over the
+    global batch, as JAX's SPMD partitioner does: the f32 sums of the
+    values and the count, then of the squared deviations from the global
+    mean, each summed over the ranks by ``all_reduce_sum`` (whose backward
+    sums the gradients over the ranks), and normalises and updates the
+    running statistics with them, identically on every rank.  A recompute
+    reduces again, in the same order on every rank, and updates nothing.
     """
 
     FLAX_MOMENTUM = 0.9
+    mesh: Optional[DataMesh] = None
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps,
@@ -108,11 +120,37 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if x.dim() < 3:
             raise ValueError(f"expected [B, C, ...] input, got {x.dim()}D")
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.FLAX_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.num_batches_tracked += 1
+
+    def _synchronised(self, x: torch.Tensor, weight, bias) -> torch.Tensor:
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dims), xf.new_tensor([xf.numel() // xf.shape[1]])]),
+            self.mesh)
+        n = sums[-1]
+        centred = xf - (sums[:-1] / n).view(shape)
+        var = all_reduce_sum(centred.square().sum(dims), self.mesh) / n
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self._update_running(sums[:-1].detach() / n, var.detach())
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        if weight is not None:
+            y = y * weight.float().view(shape) + bias.float().view(shape)
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = at_use(self.weight, x), at_use(self.bias, x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
+        if self.mesh is not None and self.mesh.active:
+            return self._synchronised(x, weight, bias)
         if not _RECOMPUTING.get():
             with torch.no_grad():
                 dims = [0] + list(range(2, x.dim()))
@@ -120,12 +158,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                 mean = xf.mean(dims)
                 shape = [1, -1] + [1] * (x.dim() - 2)
                 var = (xf - mean.view(shape)).square().mean(dims)
-                m = self.FLAX_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                self.num_batches_tracked += 1
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
+
+
+def synchronise_batch_norms(model: nn.Module,
+                            mesh: Optional[DataMesh]) -> None:
+    """Let every train-mode ``BatchNorm`` of ``model`` take its statistics
+    over the ranks of ``mesh``: only where the mesh crosses processes, so
+    that a one-rank run keeps ``F.batch_norm``'s path bit for bit."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh if mesh is not None and mesh.active else None
 
 
 class FrozenBatchNorm(BatchNorm):

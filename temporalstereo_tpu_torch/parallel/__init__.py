@@ -1,0 +1,10 @@
+"""Data parallelism of the port over ``torch.distributed`` ranks."""
+from .mesh import (TIME_MAJOR_KEYS, DataMesh, all_reduce_sum,
+                   all_reduce_tree, barrier, broadcast_tree, global_mean,
+                   global_sum, init_distributed, make_data_mesh, mean_share,
+                   shard_batch, shard_batch_multihost, world_size)
+
+__all__ = ["DataMesh", "TIME_MAJOR_KEYS", "all_reduce_sum", "all_reduce_tree",
+           "barrier", "broadcast_tree", "global_mean", "global_sum",
+           "init_distributed", "make_data_mesh", "mean_share", "shard_batch",
+           "shard_batch_multihost", "world_size"]

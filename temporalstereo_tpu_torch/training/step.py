@@ -7,10 +7,17 @@ triples; the total is the sum of every entry whose key contains "loss".
 ``make_eval_step``: EPE and outlier metrics per sample at the ground
 truth's resolution, the occluded / non-occluded split, averaged over the
 samples that count.
+
+Both take a ``DataMesh`` (``parallel/mesh.py``), the counterpart of the
+JAX package's ``make_sharded_train_step`` / ``_eval_step``: each rank runs
+its shard of the global batch, and what JAX's SPMD partitioner reduces
+over the global batch is reduced over the ranks here, so that every rank
+returns the global numbers and applies the same update.  Without a group,
+or with one rank, nothing is reduced and nothing changes.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,15 +26,17 @@ from ..data.evaluation import calc_error, do_occlusion_evaluation
 from ..losses import DispSmoothL1Loss, WassersteinDistanceLoss
 from ..models.stereo import TemporalStereoNet
 from ..models.temporal import multi_frame_forward
+from ..nn.layers import synchronise_batch_norms
 from ..ops.interpolate import resize_bilinear
+from ..parallel.mesh import DataMesh, all_reduce_tree
 from .optim import global_norm
 from .state import TrainState
 
 
-def build_losses(cfg: ConfigNode):
-    l1 = DispSmoothL1Loss.from_config(cfg.MODEL.LOSSES.SMOOTH_L1_LOSS)
+def build_losses(cfg: ConfigNode, mesh: Optional[DataMesh] = None):
+    l1 = DispSmoothL1Loss.from_config(cfg.MODEL.LOSSES.SMOOTH_L1_LOSS, mesh)
     wars = WassersteinDistanceLoss.from_config(
-        cfg.MODEL.LOSSES.WARSSERSTEIN_DISTANCE_LOSS)
+        cfg.MODEL.LOSSES.WARSSERSTEIN_DISTANCE_LOSS, mesh)
     return l1, wars
 
 
@@ -53,7 +62,8 @@ def load_working_copy(model: TemporalStereoNet, state: TrainState) -> None:
 
 
 def make_train_step(model: TemporalStereoNet, cfg: ConfigNode,
-                    swa_start_step: int = -1):
+                    swa_start_step: int = -1,
+                    mesh: Optional[DataMesh] = None):
     """Returns train_step(state, batch) -> (new state, metrics).
 
     batch: the time-major window of ``models/temporal.py`` plus 'disp_gt'
@@ -64,15 +74,26 @@ def make_train_step(model: TemporalStereoNet, cfg: ConfigNode,
     ``{frame_idx}_...``, with PREVIOUS_WITH_GRADIENT) and ``grad_norm``,
     as 0-d tensors on the model's device.  ``TPU.REMAT`` recomputes each
     BPTT frame's activations in the backward (``multi_frame_forward``).
+
+    With a ``mesh`` of more than one rank, ``batch`` is this rank's shard:
+    the model's BatchNorms take their train-mode statistics over the ranks
+    from then on (``synchronise_batch_norms``, which also holds for any
+    later train-mode forward of ``model``), the temporal update its splat
+    metric's mean, the losses their normalisers;
+    the f32 gradients are summed over the ranks in one flat bucket before
+    the optimizer (so its global-norm clip and ``grad_norm`` see the
+    global gradient), and the metrics are summed likewise.
     """
-    l1_loss, wars_loss = build_losses(cfg)
+    synchronise_batch_norms(model, mesh)
+    l1_loss, wars_loss = build_losses(cfg, mesh)
     previous_with_gradient = cfg.MODEL.get("PREVIOUS_WITH_GRADIENT", False)
     remat = cfg.TPU.get("REMAT", False)
 
     def losses_of(batch) -> Dict[str, torch.Tensor]:
         outputs, _ = multi_frame_forward(
             model, batch, train=True,
-            previous_with_gradient=previous_with_gradient, remat=remat)
+            previous_with_gradient=previous_with_gradient, remat=remat,
+            mesh=mesh)
         if not previous_with_gradient:
             return compute_losses(outputs, batch["disp_gt"][-1], l1_loss,
                                   wars_loss)
@@ -95,20 +116,23 @@ def make_train_step(model: TemporalStereoNet, cfg: ConfigNode,
         grads = {name: (torch.zeros_like(state.params[name]) if p.grad is None
                         else p.grad.float())
                  for name, p in model.named_parameters()}
+        grads = all_reduce_tree(grads, mesh)
         new_stats = {name: model.get_buffer(name).detach().float().clone()
                      for name in state.batch_stats}
         model.zero_grad(set_to_none=True)
         swa_active = 0 <= swa_start_step <= state.step
         state = state.apply_gradients(grads, new_batch_stats=new_stats,
                                       swa_active=swa_active)
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = all_reduce_tree({k: v.detach() for k, v in losses.items()},
+                                  mesh)
         metrics["grad_norm"] = global_norm(grads)
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
+def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode,
+                   mesh: Optional[DataMesh] = None):
     """Returns eval_step(batch) -> metrics, 0-d tensors on the batch's
     device (nothing is read back to the host).
 
@@ -121,7 +145,10 @@ def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
     is their number.  With VAL.DO_OCCLUSION_EVALUATION and a right-view
     ground truth, the 'occ_*' / 'noc_*' metrics are averaged over the
     samples with a pixel of that split, their number under
-    'weight:<key>'.
+    'weight:<key>'.  With a ``mesh`` of more than one rank, every mean's
+    sum and count are summed over the ranks (one flat all-reduce), so a
+    wrap-padded duplicate counts on no rank and every rank returns the
+    global metrics and weights.
     """
     lb = cfg.VAL.get("LOWERBOUND", 0)
     ub = cfg.VAL.get("UPPERBOUND", 192)
@@ -135,7 +162,8 @@ def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:
-        outputs, _ = multi_frame_forward(model, batch, train=False)
+        outputs, _ = multi_frame_forward(model, batch, train=False,
+                                         mesh=mesh)
         gt = batch["disp_gt"][-1].float()
         gt_right = batch.get("disp_gt_right")
         pad_mask = batch.get("pad_mask")
@@ -144,9 +172,11 @@ def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
         # a sample without a valid pixel carries no information
         valid_px = ((gt > lb) & (gt < ub)).sum(dim=(1, 2, 3))
         sw = pm * (valid_px > 0).to(gt.dtype)
-        total_w = sw.sum().clamp(min=1.0)
 
-        metrics = {"weight": sw.sum()}
+        # each metric's sum over the samples that count, and the key of
+        # their number: 'weight', or the metric's own 'weight:<key>'
+        parts = {"weight": sw.sum()}
+        means = []
         gh, gw = gt.shape[1:3]
         disps = [resize_bilinear(d.float() * (gw / d.shape[2]), (gh, gw))
                  if d.shape[1:3] != (gh, gw) else d.float()
@@ -157,8 +187,9 @@ def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
             err = per_sample(lambda e, g: calc_error(e, g, lb=lb, ub=ub),
                              disps[i], gt)
             for k, v in err.items():
-                metrics[f"metric_disparity_{i}/all_{k}"] = (
-                    (v * sw).sum() / total_w)
+                key = f"metric_disparity_{i}/all_{k}"
+                parts[f"sum:{key}"] = (v * sw).sum()
+                means.append((key, "weight"))
             if do_occ and gt_right is not None:
                 occ = per_sample(
                     lambda e, g, gr: do_occlusion_evaluation(
@@ -169,8 +200,15 @@ def make_eval_step(model: TemporalStereoNet, cfg: ConfigNode):
                 for k, v in occ.items():
                     w = split_w[k.split("_", 1)[0]]
                     key = f"metric_disparity_{i}/{k}"
-                    metrics[key] = (v * w).sum() / w.sum().clamp(min=1.0)
-                    metrics[f"weight:{key}"] = w.sum()
+                    parts[f"sum:{key}"] = (v * w).sum()
+                    parts[f"weight:{key}"] = w.sum()
+                    means.append((key, f"weight:{key}"))
+        parts = all_reduce_tree(parts, mesh)
+        metrics = {"weight": parts["weight"]}
+        for key, weight in means:
+            metrics[key] = parts[f"sum:{key}"] / parts[weight].clamp(min=1.0)
+            if weight != "weight":
+                metrics[weight] = parts[weight]
         return metrics
 
     return eval_step

@@ -1,9 +1,8 @@
 """The trainer: epochs, validation, checkpoints, resume, SWA and warm
 starts.
 
-Counterpart of the JAX package's ``training/trainer.py``, for one process
-on one card (data parallelism is not ported).  The order of work is the
-JAX package's, batch for batch:
+Counterpart of the JAX package's ``training/trainer.py``.  The order of
+work is the JAX package's, batch for batch:
   * the experiment dir ``LOG_DIR/TRAINER.NAME/TRAINER.VERSION`` with
     ``log.txt``, ``tb/metrics.jsonl``, ``checkpoints/`` and a copy of the
     port's code;
@@ -26,6 +25,19 @@ host's time to enqueue the step), the eval time per
 sample, each checkpoint's seconds and size, and the SWA finish; each
 loader's worker pool starts once and stops at the end of ``fit`` and
 ``test``.
+
+Data parallelism (``multihost``, the ``train --multihost`` CLI under
+``torchrun``): each rank loads its shard of every split (``num_shards`` =
+the ranks), the global batch is ``DATA.TRAIN.BATCH_SIZE`` x the ranks, and
+the steps reduce over the ranks (``training/step.py``): BatchNorm
+statistics, losses, gradients and eval metrics are those of the global
+batch, as under JAX's SPMD partitioner.  The initial state is rank 0's,
+broadcast after the seed, the warm starts and a resume.  Only rank 0
+writes: the text log, the metrics, the code copy, images, checkpoints and
+``weights_final.pth``; every rank waits for each checkpoint to be written.
+The image logs' forwards run on rank 0 alone, on its own batch, in eval
+mode and without the mesh, so that they reduce nothing (as JAX's process
+0 runs them on its host-local batch).
 """
 from __future__ import annotations
 
@@ -47,6 +59,9 @@ from ..data.loader import prefetch_to_device
 from ..data.transforms import denormalize
 from ..models import build_model, multi_frame_forward, resolve_device
 from ..ops.interpolate import resize_bilinear
+from ..parallel.mesh import (barrier, broadcast_tree, init_distributed,
+                             make_data_mesh, shard_batch_multihost,
+                             world_size)
 from ..utils.logging import FileWriter, MetricLogger, format_error_table
 from ..visualization import disp_err_to_colorbar, disp_to_color
 from .checkpoint import (CheckpointManager, load_any_weights, save_weights,
@@ -75,24 +90,31 @@ def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 class Trainer:
-    def __init__(self, cfg: ConfigNode, device=None):
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise RuntimeError("the port trains in one process on one card; "
-                               "data parallelism is not ported")
+    def __init__(self, cfg: ConfigNode, device=None, multihost: bool = False):
+        if multihost:
+            device = init_distributed(device)
+        elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise RuntimeError("the port trains in one process unless "
+                               "--multihost (multihost=True) is given")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = make_data_mesh(cfg.DATA.TRAIN.BATCH_SIZE * world_size(),
+                                   cfg.TPU.MESH.DATA, self.device)
+        self.is_main = self.mesh.is_main
         self.exp_dir = os.path.join(cfg.LOG_DIR, cfg.TRAINER.NAME,
                                     cfg.TRAINER.VERSION)
-        self.writer = FileWriter(self.exp_dir)
-        self.metrics = MetricLogger(os.path.join(self.exp_dir, "tb"))
-        backup_code(os.path.join(self.exp_dir, "code"))
+        self.writer = FileWriter(self.exp_dir, self.is_main)
+        self.metrics = MetricLogger(os.path.join(self.exp_dir, "tb"),
+                                    self.is_main)
+        if self.is_main:
+            backup_code(os.path.join(self.exp_dir, "code"))
         self.timings = defaultdict(list)
 
         seed = cfg.get("SEED", 43)
         np.random.seed(seed)
         self.model = build_model(cfg, device=self.device, seed=seed)
-        self.train_loader = build_dataloader(cfg.DATA.TRAIN, "train")
-        self.val_loader = build_dataloader(cfg.DATA.VAL, "val")
+        self.train_loader = self._loader(cfg.DATA.TRAIN, "train")
+        self.val_loader = self._loader(cfg.DATA.VAL, "val")
 
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.tx = build_optimizer(cfg, self.steps_per_epoch)
@@ -103,13 +125,22 @@ class Trainer:
                      if swa_enabled else -1)
 
         self.state = self._init_state(swa_enabled)
-        self.ckpt = CheckpointManager(
+        self.ckpt = (CheckpointManager(
             os.path.join(self.exp_dir, "checkpoints"),
-            keep=cfg.CHECKPOINT.get("KEEP", -1))
+            keep=cfg.CHECKPOINT.get("KEEP", -1)) if self.is_main else None)
         self.train_step = make_train_step(self.model, cfg,
-                                          swa_start_step=swa_start)
-        self.eval_step = make_eval_step(self.model, cfg)
+                                          swa_start_step=swa_start,
+                                          mesh=self.mesh)
+        self.eval_step = make_eval_step(self.model, cfg, mesh=self.mesh)
         self._maybe_restore()
+        tensors = ("params", "batch_stats", "opt_state", "swa_params")
+        self.state = dataclasses.replace(self.state, **broadcast_tree(
+            {f: getattr(self.state, f) for f in tensors}, self.mesh))
+
+    def _loader(self, node, phase: str):
+        """This rank's shard of a split."""
+        return build_dataloader(node, phase, num_shards=self.mesh.world,
+                                shard_index=self.mesh.rank)
 
     # ------------------------------------------------------------------ --
     def _init_state(self, with_swa: bool) -> TrainState:
@@ -154,11 +185,14 @@ class Trainer:
             self.writer.stdout(f"warm-started {n} tensors from {load}")
 
     def _save(self, step: int) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
         t0 = time.perf_counter()
-        if self.ckpt.save(step, self.state, hparams=self.cfg.to_dict()):
+        if self.is_main and self.ckpt.save(step, self.state,
+                                           hparams=self.cfg.to_dict()):
             self.timings["checkpoint_s"].append(time.perf_counter() - t0)
             self.timings["checkpoint_mb"].append(
                 os.path.getsize(self.ckpt.path(step)) / 2 ** 20)
+        barrier(self.mesh)
 
     # ------------------------------------------------------------------ --
     def fit(self) -> None:
@@ -178,8 +212,10 @@ class Trainer:
                     break
             self._finalize_swa()
             self._save(self.state.step)
-            save_weights(os.path.join(self.exp_dir, "weights_final.pth"),
-                         self.state.params, self.state.batch_stats)
+            if self.is_main:
+                save_weights(os.path.join(self.exp_dir, "weights_final.pth"),
+                             self.state.params, self.state.batch_stats)
+            barrier(self.mesh)
         finally:
             self.train_loader.close()
             self.val_loader.close()
@@ -187,8 +223,10 @@ class Trainer:
     def _finalize_swa(self) -> None:
         """Swap in the SWA average of the f32 masters, then re-estimate
         the BatchNorm statistics with train-mode forwards (no gradients)
-        over min(steps per epoch, BN_UPDATE_STEPS) train batches; the
-        masters and the optimizer state stay as they are."""
+        over min(steps per epoch, BN_UPDATE_STEPS) train batches, over the
+        ranks' global batches (the model's BatchNorms were synchronised by
+        ``make_train_step``); the masters and the optimizer state stay as
+        they are."""
         if self.state.swa_params is None or self.state.swa_count == 0:
             return
         t0 = time.perf_counter()
@@ -204,7 +242,8 @@ class Trainer:
             if i >= max_batches:
                 break
             with torch.no_grad():
-                multi_frame_forward(self.model, device_batch, train=True)
+                multi_frame_forward(self.model, device_batch, train=True,
+                                    mesh=self.mesh)
         stats = {name: self.model.get_buffer(name).detach().float().clone()
                  for name in self.state.batch_stats}
         self.state = dataclasses.replace(self.state, batch_stats=stats)
@@ -216,10 +255,11 @@ class Trainer:
             f"snapshots), BN re-estimated over {max_batches} batches")
 
     def _prefetch(self, loader):
-        """(device_batch, host_batch) pairs, TPU.HOST_PREFETCH batches'
-        copies ahead of the step."""
-        return prefetch_to_device(loader, self.cfg.TPU.get("HOST_PREFETCH",
-                                                           2), self.device)
+        """(device_batch, host_batch) pairs of this rank's shard,
+        TPU.HOST_PREFETCH batches' copies ahead of the step."""
+        local = (shard_batch_multihost(self.mesh, b) for b in loader)
+        return prefetch_to_device(local, self.cfg.TPU.get("HOST_PREFETCH",
+                                                          2), self.device)
 
     def _train_epoch(self, epoch: int, fast_dev: bool = False) -> None:
         cfg = self.cfg
@@ -255,7 +295,7 @@ class Trainer:
 
     def test(self, epoch: Optional[int] = None) -> Dict[str, float]:
         """A pass over the DATA.TEST split after fit."""
-        loader = build_dataloader(self.cfg.DATA.TEST, "test")
+        loader = self._loader(self.cfg.DATA.TEST, "test")
         if epoch is None:
             epoch = self.cfg.TRAINER.MAX_EPOCHS
         try:
@@ -267,7 +307,8 @@ class Trainer:
                   ) -> Dict[str, float]:
         """Epoch means of the eval metrics: each batch's metrics weighted
         by its real-sample count ``weight``, or by ``weight:<key>`` for a
-        metric pooled over a sub-population (the occ/noc splits)."""
+        metric pooled over a sub-population (the occ/noc splits); both are
+        global over the ranks, so every rank computes the same means."""
         load_working_copy(self.model, self.state)
         sums = defaultdict(float)
         totals = defaultdict(float)
@@ -302,10 +343,12 @@ class Trainer:
                     prefix: str = "val/") -> None:
         """Image dumps of up to VAL.VIS_BATCH_INDEX samples: input, ground
         truth, predicted disparity and error colour bar per scale, the
-        local map and the search-range low/high/validity maps.  The
+        local map and the search-range low/high/validity maps, on rank 0
+        only (its forward, in eval mode without the mesh, reduces
+        nothing).  The
         forward runs outside any ``try``: its failure ends the run."""
         n_vis = self.cfg.VAL.get("VIS_BATCH_INDEX", 4)
-        if n_vis <= 0:
+        if n_vis <= 0 or not self.is_main:
             return      # dumps disabled: no extra forward either
         load_working_copy(self.model, self.state)
         with torch.no_grad():

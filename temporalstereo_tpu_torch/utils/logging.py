@@ -3,7 +3,9 @@ error table, and a scalar sink.
 
 Counterpart of the JAX package's ``utils/logging.py``.  ``MetricLogger``
 always appends to ``metrics.jsonl``; it also writes TensorBoard events when
-``torch.utils.tensorboard`` imports, and only then records images.
+``torch.utils.tensorboard`` imports, and only then records images.  As in
+the JAX package, both take ``is_main``: off rank 0 they create, write and
+print nothing.
 """
 from __future__ import annotations
 
@@ -61,13 +63,16 @@ def format_error_table(means: Dict[str, float]) -> str:
 class FileWriter:
     """Text log (``log.txt`` and stdout) with examples/s and ETA."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, is_main: bool = True):
+        self.is_main = is_main
         self.log_dir = log_dir
         self.num_total_steps: Optional[int] = None
         self.start_time = time.time()
-        os.makedirs(log_dir, exist_ok=True)
-        self.fp = open(os.path.join(log_dir, "log.txt"), "a")
-        self.stdout(collect_env_info())
+        self.fp = None
+        if is_main:
+            os.makedirs(log_dir, exist_ok=True)
+            self.fp = open(os.path.join(log_dir, "log.txt"), "a")
+            self.stdout(collect_env_info())
 
     def set_num_total_steps(self, n: int) -> None:
         self.num_total_steps = n
@@ -76,6 +81,8 @@ class FileWriter:
         self.start_time = t
 
     def stdout(self, msg: str) -> None:
+        if not self.is_main:
+            return
         print(msg, flush=True)
         if self.fp:
             self.fp.write(msg + "\n")
@@ -83,6 +90,8 @@ class FileWriter:
 
     def log_time(self, step: int, epoch: int, batch_idx: int,
                  batch_size: int, duration: float, loss: float) -> None:
+        if not self.is_main:
+            return
         eps = batch_size / max(duration, 1e-9)
         msg = (f"epoch {epoch:3d} | step {step:7d} | batch {batch_idx:5d} "
                f"| examples/s: {eps:8.2f} | loss: {float(loss):.5f}")
@@ -103,8 +112,10 @@ class MetricLogger:
     """Scalar sink: ``metrics.jsonl``, plus TensorBoard events where
     ``torch.utils.tensorboard`` imports."""
 
-    def __init__(self, log_dir: str):
-        self.tb = None
+    def __init__(self, log_dir: str, is_main: bool = True):
+        self.tb = self.jsonl = None
+        if not is_main:
+            return
         os.makedirs(log_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
