@@ -12,6 +12,13 @@ I/O type before the correlation, and each output is rounded once.  The
 backward gives the gradients of all three inputs (the hypotheses carry the
 previous stage's gradient), as ``jax.vjp`` of the JAX formulation does,
 in a fixed order of summation: the backward kernel is deterministic.
+
+The forward also takes column offsets, for a W-sharded forward
+(``parallel/spatial.py``): the reference's column x is the frame's column
+x0 + x, and the target [B, H, Wt, C] holds the frame's columns
+[t0, t0 + Wt), which must cover every column the hypotheses reach inside
+the frame; a tap outside them reads zero.  The offset form has no
+backward: the sharded forward is inference only.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import LAUNCHES, PAIRS, SLICE, cuda_device_index, row_plan
+from .launches import (LAUNCHES, PAIRS, SHARDED_NO_GRAD, SLICE,
+                       check_no_grad, cuda_device_index, row_plan)
 
 GROUP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,10 +63,12 @@ def _kernels():
 
 
 def _check(reference_fm, target_fm, disp_sample):
+    """The target may hold another span of columns than the reference."""
     b, h, w, c = reference_fm.shape
-    if target_fm.shape != reference_fm.shape:
-        raise ValueError(f"target {tuple(target_fm.shape)} != reference "
-                         f"{tuple(reference_fm.shape)}")
+    if target_fm.dim() != 4 or target_fm.shape[:2] != (b, h) \
+            or target_fm.shape[3] != c:
+        raise ValueError(f"target {tuple(target_fm.shape)} does not match "
+                         f"reference {tuple(reference_fm.shape)}")
     if disp_sample.dim() != 4 or disp_sample.shape[0] != b \
             or disp_sample.shape[2:] != (h, w):
         raise ValueError(f"hypotheses {tuple(disp_sample.shape)} do not "
@@ -74,7 +84,8 @@ def _check(reference_fm, target_fm, disp_sample):
 
 
 def fused_cost_base_plain(reference_fm: torch.Tensor, target_fm: torch.Tensor,
-                          disp_sample: torch.Tensor) -> torch.Tensor:
+                          disp_sample: torch.Tensor, x0: int = 0,
+                          t0: int = 0) -> torch.Tensor:
     """The same function in plain PyTorch: shift_1d + concat +
     groupwise_correlation (the JAX package's ``_xla_reference``); torch
     autograd differentiates it."""
@@ -86,12 +97,13 @@ def fused_cost_base_plain(reference_fm: torch.Tensor, target_fm: torch.Tensor,
     d = disp_sample.shape[1]
     dtype = reference_fm.dtype
     ref = reference_fm[:, None].expand(b, d, h, w, c)
-    warped = shift_1d(target_fm[:, None].float(), -disp_sample).to(dtype)
+    warped = shift_1d(target_fm[:, None].float(), -disp_sample, x0,
+                      t0).to(dtype)
     corr = groupwise_correlation(ref.float(), warped.float()).to(dtype)
     return torch.cat([ref, warped, corr], dim=-1)
 
 
-def _forward(reference_fm, target_fm, disp_sample):
+def _forward(reference_fm, target_fm, disp_sample, x0=0, t0=0):
     device = cuda_device_index("fused_cost_base", reference_fm, target_fm,
                                disp_sample)
     b, h, w, c = reference_fm.shape
@@ -101,8 +113,8 @@ def _forward(reference_fm, target_fm, disp_sample):
     stream = torch.cuda.current_stream(reference_fm.device).cuda_stream
     err = _kernels()["forward"](
         reference_fm.data_ptr(), target_fm.data_ptr(), disp_sample.data_ptr(),
-        out.data_ptr(), b, d, h, w, c, _DTYPES[reference_fm.dtype], device,
-        stream)
+        out.data_ptr(), b, d, h, w, c, x0, t0, target_fm.shape[2],
+        _DTYPES[reference_fm.dtype], device, stream)
     if err:
         raise RuntimeError(f"fused_cost_base: launch failed, CUDA error {err}")
     LAUNCHES["fused_cost_base"] += 1
@@ -116,6 +128,9 @@ def fused_cost_base_backward(grad_out: torch.Tensor,
     """The backward kernel: grad_out [B, D, H, W, 2C + C//8] -> (grad_ref,
     grad_tgt, grad_disp), in the inputs' types."""
     _check(reference_fm, target_fm, disp_sample)
+    if target_fm.shape != reference_fm.shape:
+        raise ValueError("the backward takes a target of the reference's "
+                         f"shape, got {tuple(target_fm.shape)}")
     b, h, w, c = reference_fm.shape
     d = disp_sample.shape[1]
     if grad_out.shape != (b, d, h, w, 2 * c + c // GROUP) \
@@ -157,11 +172,19 @@ class _FusedCostBase(torch.autograd.Function):
 
 
 def fused_cost_base(reference_fm: torch.Tensor, target_fm: torch.Tensor,
-                    disp_sample: torch.Tensor) -> torch.Tensor:
+                    disp_sample: torch.Tensor, x0: int = 0,
+                    t0: int = 0) -> torch.Tensor:
     """ref/tgt [B,H,W,C] (f32 or bf16) + hypotheses [B,D,H,W] (f32) ->
     [B, D, H, W, 2C + C//8].  CUDA tensors launch the kernels (forward, and
-    backward under autograd), CPU tensors run the plain version."""
+    backward under autograd), CPU tensors run the plain version.  With
+    column offsets (``x0``, ``t0``, or a target of another width) the
+    forward only, outside autograd."""
     _check(reference_fm, target_fm, disp_sample)
     if reference_fm.device.type == "cpu":
-        return fused_cost_base_plain(reference_fm, target_fm, disp_sample)
+        return fused_cost_base_plain(reference_fm, target_fm, disp_sample,
+                                     x0, t0)
+    if x0 or t0 or target_fm.shape != reference_fm.shape:
+        check_no_grad("fused_cost_base with column offsets", reference_fm,
+                      target_fm, disp_sample, reason=SHARDED_NO_GRAD)
+        return _forward(reference_fm, target_fm, disp_sample, x0, t0)
     return _FusedCostBase.apply(reference_fm, target_fm, disp_sample)

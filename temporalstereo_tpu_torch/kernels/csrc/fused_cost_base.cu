@@ -10,6 +10,11 @@
 // Coordinates are f32 whatever the I/O type; the warped value is rounded to
 // the I/O type before the correlation, as the TPU kernel does.
 //
+// Column offsets (the W-sharded forward, parallel/spatial.py): ref's column
+// x is the frame's column x0 + x, and tgt [B,H,Wt,C] holds the frame's
+// columns [t0, t0 + Wt); a tap outside them reads zero.  x0 = t0 = 0 with
+// Wt = W is the unsharded call, the same arithmetic.
+//
 // What bounds it on an H100: bytes.  Per output element it does ~3 flops, so
 // it sits far below the card's ridge point; the output (2C+C/8 channels per
 // hypothesis) is ~90% of the traffic: ~36.6 MB at the fine stage
@@ -44,7 +49,8 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
 fused_cost_base_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
                        const float* __restrict__ disp, T* __restrict__ out,
-                       int B, int D, int H, int W, int C) {
+                       int B, int D, int H, int W, int C, int x0, int t0,
+                       int Wt) {
   const int G = C / GROUP;
   const long long total = (long long)B * D * H * W * G;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -57,9 +63,10 @@ fused_cost_base_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
   const int b = (int)(t / D);
 
   const long long pix = ((long long)b * D + d) * H * W + (long long)h * W + x;
-  const long long row = ((long long)b * H + h) * W;   // [B,H,W] row start
+  const long long row = ((long long)b * H + h) * W;   // ref's row start
+  const long long trow = ((long long)b * H + h) * Wt;  // tgt's row start
   // x + (-disp) in f32, exactly the reference's iota + shift
-  const float xs = (float)x - disp[pix];
+  const float xs = (float)(x0 + x) - disp[pix];
   const float x0f = floorf(xs);
   const float fx = xs - x0f;
 
@@ -67,17 +74,18 @@ fused_cost_base_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
   load8<true>(ref + (row + x) * C + g * GROUP, r);
 #pragma unroll
   for (int k = 0; k < 8; ++k) w[k] = 0.f;
-  float t0[8], t1[8];
-  if (x0f >= 0.f && x0f <= (float)(W - 1)) {
-    load8<true>(tgt + (row + (int)x0f) * C + g * GROUP, t0);
+  float a0[8], a1[8];
+  const float lo = (float)t0, hi = (float)(t0 + Wt - 1);
+  if (x0f >= lo && x0f <= hi) {
+    load8<true>(tgt + (trow + (int)x0f - t0) * C + g * GROUP, a0);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] += (1.f - fx) * t0[k];
+    for (int k = 0; k < 8; ++k) w[k] += (1.f - fx) * a0[k];
   }
   const float x1f = x0f + 1.f;
-  if (x1f >= 0.f && x1f <= (float)(W - 1)) {
-    load8<true>(tgt + (row + (int)x1f) * C + g * GROUP, t1);
+  if (x1f >= lo && x1f <= hi) {
+    load8<true>(tgt + (trow + (int)x1f - t0) * C + g * GROUP, a1);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] += fx * t1[k];
+    for (int k = 0; k < 8; ++k) w[k] += fx * a1[k];
   }
   float corr = 0.f;
 #pragma unroll
@@ -95,8 +103,8 @@ fused_cost_base_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
 
 template <typename T>
 cudaError_t launch(const void* ref, const void* tgt, const void* disp,
-                   void* out, int B, int D, int H, int W, int C,
-                   cudaStream_t stream) {
+                   void* out, int B, int D, int H, int W, int C, int x0,
+                   int t0, int Wt, cudaStream_t stream) {
   const long long total = (long long)B * D * H * W * (C / GROUP);
   if (total == 0) return cudaSuccess;
   const int threads = 256;
@@ -104,10 +112,12 @@ cudaError_t launch(const void* ref, const void* tgt, const void* disp,
   const bool vec = ((2 * C + C / GROUP) * sizeof(T)) % 16 == 0;
   if (vec) {
     fused_cost_base_kernel<T, true><<<blocks, threads, 0, stream>>>(
-        (const T*)ref, (const T*)tgt, (const float*)disp, (T*)out, B, D, H, W, C);
+        (const T*)ref, (const T*)tgt, (const float*)disp, (T*)out, B, D, H, W, C,
+        x0, t0, Wt);
   } else {
     fused_cost_base_kernel<T, false><<<blocks, threads, 0, stream>>>(
-        (const T*)ref, (const T*)tgt, (const float*)disp, (T*)out, B, D, H, W, C);
+        (const T*)ref, (const T*)tgt, (const float*)disp, (T*)out, B, D, H, W, C,
+        x0, t0, Wt);
   }
   return cudaGetLastError();
 }
@@ -115,18 +125,19 @@ cudaError_t launch(const void* ref, const void* tgt, const void* disp,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (ref, tgt and out); disp is float32.
+// ref is [B,H,W,C] at the frame's column x0, tgt [B,H,Wt,C] at column t0.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_cost_base(const void* ref, const void* tgt,
                                const void* disp, void* out, int B, int D,
-                               int H, int W, int C, int dtype, int device,
-                               void* stream) {
+                               int H, int W, int C, int x0, int t0, int Wt,
+                               int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0)
-    return (int)launch<float>(ref, tgt, disp, out, B, D, H, W, C,
-                              (cudaStream_t)stream);
+    return (int)launch<float>(ref, tgt, disp, out, B, D, H, W, C, x0, t0,
+                              Wt, (cudaStream_t)stream);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(ref, tgt, disp, out, B, D, H, W, C,
-                                      (cudaStream_t)stream);
+                                      x0, t0, Wt, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,10 @@
 // The taps are weighted in f32 and the sum is rounded once to the I/O type
 // (the JAX formulation rounds the weights to the I/O type first; in f32 the
 // two are the same).
+// The forward takes column offsets (the W-sharded forward,
+// parallel/spatial.py): out's column x is the frame's column x0 + x, and img
+// [B,Di,H,Wt,C] holds the frame's columns [t0, t0 + Wt); a tap outside them
+// contributes 0.  x0 = t0 = 0 with Wt = W is the unsharded call.
 // Backward, for the output's gradient g:
 //   grad_img[.., x0, c]   += (1-f) * g    (tap valid)
 //   grad_img[.., x0+1, c] +=  f    * g    (tap valid)
@@ -81,7 +85,8 @@ template <typename T, int V>
 __global__ void __launch_bounds__(256)
 shift_1d_forward_kernel(const T* __restrict__ img,
                         const float* __restrict__ shift, T* __restrict__ out,
-                        int B, int D, int Di, int H, int W, int C) {
+                        int B, int D, int Di, int H, int W, int C, int x0,
+                        int t0, int Wt) {
   const int NV = C / V;
   const long long total = (long long)B * D * H * W * NV;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,22 +94,23 @@ shift_1d_forward_kernel(const T* __restrict__ img,
   const Pixel p = split(i, NV, W, H, D);
   const long long pix = (((long long)p.b * D + p.d) * H + p.h) * W + p.x;
   const long long row =
-      (((long long)p.b * Di + (Di == 1 ? 0 : p.d)) * H + p.h) * W;
-  const float xs = (float)p.x + shift[pix];
+      (((long long)p.b * Di + (Di == 1 ? 0 : p.d)) * H + p.h) * Wt;
+  const float xs = (float)(x0 + p.x) + shift[pix];
   const float x0f = floorf(xs);
   const float fx = xs - x0f;
   const float x1f = x0f + 1.f;
+  const float lo = (float)t0, hi = (float)(t0 + Wt - 1);
 
   float o[V], a[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) o[k] = 0.f;
-  if (x0f >= 0.f && x0f <= (float)(W - 1)) {
-    loadv<V>(img + (row + (int)x0f) * C + p.cv * V, a);
+  if (x0f >= lo && x0f <= hi) {
+    loadv<V>(img + (row + (int)x0f - t0) * C + p.cv * V, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) o[k] += (1.f - fx) * a[k];
   }
-  if (x1f >= 0.f && x1f <= (float)(W - 1)) {
-    loadv<V>(img + (row + (int)x1f) * C + p.cv * V, a);
+  if (x1f >= lo && x1f <= hi) {
+    loadv<V>(img + (row + (int)x1f - t0) * C + p.cv * V, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) o[k] += fx * a[k];
   }
@@ -259,16 +265,19 @@ unsigned blocks_for(long long total) {
 
 template <typename T>
 cudaError_t forward(const void* img, const void* shift, void* out, int B,
-                    int D, int Di, int H, int W, int C, cudaStream_t stream) {
+                    int D, int Di, int H, int W, int C, int x0, int t0,
+                    int Wt, cudaStream_t stream) {
   const int V = C % tsk::GROUP == 0 ? tsk::GROUP : 1;
   const long long total = (long long)B * D * H * W * (C / V);
   if (total == 0) return cudaSuccess;
   if (V == tsk::GROUP)
     shift_1d_forward_kernel<T, 8><<<blocks_for(total), THREADS, 0, stream>>>(
-        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C);
+        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C, x0,
+        t0, Wt);
   else
     shift_1d_forward_kernel<T, 1><<<blocks_for(total), THREADS, 0, stream>>>(
-        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C);
+        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C, x0,
+        t0, Wt);
   return cudaGetLastError();
 }
 
@@ -293,17 +302,21 @@ cudaError_t backward(const void* g, const void* img, const void* shift,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (img and out); shift is float32.
-// Returns the cudaError_t of the launch (0 on success).
+// shift and out are [B,D,H,W] at the frame's column x0, img [B,Di,H,Wt,C] at
+// column t0.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int shift_1d_forward(const void* img, const void* shift, void* out,
                                 int B, int D, int Di, int H, int W, int C,
-                                int dtype, int device, void* stream) {
+                                int x0, int t0, int Wt, int dtype, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)forward<float>(img, shift, out, B, D, Di, H, W, C, s);
+    return (int)forward<float>(img, shift, out, B, D, Di, H, W, C, x0, t0, Wt,
+                               s);
   if (dtype == 1)
-    return (int)forward<__nv_bfloat16>(img, shift, out, B, D, Di, H, W, C, s);
+    return (int)forward<__nv_bfloat16>(img, shift, out, B, D, Di, H, W, C, x0,
+                                       t0, Wt, s);
   return (int)cudaErrorInvalidValue;
 }
 

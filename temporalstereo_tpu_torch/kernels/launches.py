@@ -45,14 +45,18 @@ def row_plan(channels: int, width: int, pairs: int, ring_elems: int,
     return slices, shared
 
 
-def check_no_grad(name: str, *tensors) -> None:
+SPLAT_NO_GRAD = "the model stops the gradient at the temporal splat"
+SHARDED_NO_GRAD = "the W-sharded forward is inference only"
+
+
+def check_no_grad(name: str, *tensors, reason: str = SPLAT_NO_GRAD) -> None:
     """For a kernel without a backward: the model never differentiates the
     temporal splat (the JAX package stops the gradient right after it,
-    ``models/stereo.py:239``, and on the carried state it reads), so a
-    gradient reaching it is a fault in the caller."""
+    ``models/stereo.py:239``, and on the carried state it reads), nor the
+    W-sharded forward (inference only), so a gradient reaching either is a
+    fault in the caller."""
     if any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward: the model stops the "
-                           "gradient at the temporal splat; detach its "
+        raise RuntimeError(f"{name} has no backward: {reason}; detach its "
                            "inputs")
 
 

@@ -11,6 +11,12 @@ out[.., x, c] = (1 - f) img[x0, c] + f img[x0 + 1, c], x0 = floor(x + shift)
 in f32, out-of-range taps 0.  The taps are weighted in f32 and the sum is
 rounded once to img's type, as the plain version ``ops/warp.py:shift_1d``
 does.  The backward kernel sums in a fixed order: it is deterministic.
+
+The forward also takes column offsets, for a W-sharded forward
+(``parallel/spatial.py``): shift's column x is the frame's column x0 + x,
+and img [B, D|1, H, Wt, C] holds the frame's columns [t0, t0 + Wt); a tap
+outside them is 0.  The offset form has no backward: the sharded forward
+is inference only.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import LAUNCHES, PAIRS, SLICE, cuda_device_index, row_plan
+from .launches import (LAUNCHES, PAIRS, SHARDED_NO_GRAD, SLICE,
+                       check_no_grad, cuda_device_index, row_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -46,12 +53,13 @@ def _kernels():
 
 
 def _check(img, shift):
+    """img may hold another span of columns than shift."""
     if shift.dim() != 4 or img.dim() != 5:
         raise ValueError(f"img {tuple(img.shape)} must be [B,D,H,W,C] and "
                          f"shift {tuple(shift.shape)} [B,D,H,W]")
     b, d, h, w = shift.shape
     if img.shape[0] != b or img.shape[1] not in (1, d) \
-            or img.shape[2:4] != (h, w):
+            or img.shape[2] != h:
         raise ValueError(f"img {tuple(img.shape)} does not match shift "
                          f"{tuple(shift.shape)}")
     if img.dtype not in _DTYPES:
@@ -60,13 +68,14 @@ def _check(img, shift):
         raise TypeError(f"shift must be float32, got {shift.dtype}")
 
 
-def shift_1d_plain(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+def shift_1d_plain(img: torch.Tensor, shift: torch.Tensor, x0: int = 0,
+                   t0: int = 0) -> torch.Tensor:
     """The same function in plain PyTorch (``ops/warp.py:shift_1d``); torch
     autograd differentiates it."""
     from ..ops.warp import shift_1d as plain
 
     _check(img, shift)
-    return plain(img, shift)
+    return plain(img, shift, x0, t0)
 
 
 def _dims(img, shift):
@@ -74,14 +83,15 @@ def _dims(img, shift):
     return b, d, img.shape[1], h, w, img.shape[-1]
 
 
-def _forward(img, shift):
+def _forward(img, shift, x0=0, t0=0):
     device = cuda_device_index("shift_1d", img, shift)
     b, d, di, h, w, c = _dims(img, shift)
     out = torch.empty((b, d, h, w, c), dtype=img.dtype, device=img.device)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = _kernels()["forward"](img.data_ptr(), shift.data_ptr(),
-                                out.data_ptr(), b, d, di, h, w, c,
-                                _DTYPES[img.dtype], device, stream)
+                                out.data_ptr(), b, d, di, h, w, c, x0, t0,
+                                img.shape[3], _DTYPES[img.dtype], device,
+                                stream)
     if err:
         raise RuntimeError(f"shift_1d: launch failed, CUDA error {err}")
     LAUNCHES["shift_1d"] += 1
@@ -93,6 +103,9 @@ def shift_1d_backward(grad_out: torch.Tensor, img: torch.Tensor,
     """The backward kernel: grad_out [B, D, H, W, C] -> (grad_img in img's
     shape and type, grad_shift [B, D, H, W] f32)."""
     _check(img, shift)
+    if img.shape[3] != shift.shape[3]:
+        raise ValueError("the backward takes img of shift's width, got "
+                         f"{tuple(img.shape)} for {tuple(shift.shape)}")
     b, d, di, h, w, c = _dims(img, shift)
     if grad_out.shape != (b, d, h, w, c) or grad_out.dtype != img.dtype:
         raise ValueError(f"output gradient {tuple(grad_out.shape)} "
@@ -129,11 +142,18 @@ class _Shift1d(torch.autograd.Function):
         return shift_1d_backward(grad_out.contiguous(), *ctx.saved_tensors)
 
 
-def shift_1d(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+def shift_1d(img: torch.Tensor, shift: torch.Tensor, x0: int = 0,
+             t0: int = 0) -> torch.Tensor:
     """img [B,D|1,H,W,C] (f32 or bf16) + shift [B,D,H,W] (f32) ->
     [B,D,H,W,C].  CUDA tensors launch the kernels (forward, and backward
-    under autograd), CPU tensors run the plain version."""
+    under autograd), CPU tensors run the plain version.  With column
+    offsets (``x0``, ``t0``, or img of another width) the forward only,
+    outside autograd."""
     _check(img, shift)
     if img.device.type == "cpu":
-        return shift_1d_plain(img, shift)
+        return shift_1d_plain(img, shift, x0, t0)
+    if x0 or t0 or img.shape[3] != shift.shape[3]:
+        check_no_grad("shift_1d with column offsets", img, shift,
+                      reason=SHARDED_NO_GRAD)
+        return _forward(img, shift, x0, t0)
     return _Shift1d.apply(img, shift)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..nn.layers import BatchNorm, Conv2d
 from ..ops.interpolate import resize_bilinear
+from ..parallel.spatial import active_plan
 from ..utils.registry import BACKBONE_REGISTRY
 
 
@@ -59,7 +60,9 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = Conv2d(rd_channels, channels, 1, bias=True)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        plan = active_plan()
+        s = (x.mean(dim=(2, 3), keepdim=True) if plan is None
+             else plan.spatial_mean(x))
         s = self.conv_expand(F.silu(self.conv_reduce(s)))
         return x * torch.sigmoid(s)
 

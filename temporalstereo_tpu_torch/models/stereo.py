@@ -24,6 +24,7 @@ from ..ops.interpolate import resize_bilinear
 from ..ops.softsplat import softsplat
 from ..ops.warp import project_to_3d
 from ..parallel.mesh import DataMesh, global_mean
+from ..parallel.spatial import width_ratio
 from .aggregation import CostMemory, TemporalStereoAggregation
 from .backbone import V2S_GROUPS, TemporalStereoBackbone
 
@@ -93,7 +94,7 @@ class TemporalStereoNet(nn.Module):
          full_disp) = self.aggregation(l_fms, r_fms, left, right,
                                        cost_memory, local_map)
 
-        full_disps = [resize_bilinear(d * (full_w / d.shape[2]),
+        full_disps = [resize_bilinear(d * width_ratio(full_w, d.shape[2]),
                                       (full_h, full_w)) for d in disps]
         outputs = {
             "disps": full_disps,

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from ..ops.interpolate import resize_bilinear, resize_trilinear
 from ..ops.upsample import convex_upsample, mask_upsample_9
 from ..ops.warp import inverse_warp
+from ..parallel.spatial import active_plan
 from .layers import (Activation, BatchNorm, Conv2d, Conv3d, ConvTranspose2d,
                      ConvTranspose3d)
 
@@ -185,12 +186,18 @@ class PyramidFusion(nn.Module):
                                          norm=norm, activation=None)
 
     def forward(self, cost):
-        cat = torch.cat([
-            cost,
-            self.conv_5x5(cost),
-            F.avg_pool3d(cost, 5, 1, 2),
-            F.max_pool3d(cost, 5, 1, 2),
-        ], dim=1)
+        fused = [cost, self.conv_5x5(cost)]
+        plan = active_plan()
+        if plan is not None:
+            fused += plan.box_pools(cost, 5)
+        elif min(cost.shape[2:]) >= 5:
+            fused += [F.avg_pool3d(cost, 5, 1, 2), F.max_pool3d(cost, 5, 1, 2)]
+        else:
+            # torch's avg_pool3d refuses an axis shorter than its window
+            # whatever the padding: pad with the zeros it would count
+            fused += [F.avg_pool3d(F.pad(cost, (2,) * 6), 5, 1, 0),
+                      F.max_pool3d(cost, 5, 1, 2)]
+        cat = torch.cat(fused, dim=1)
         return self.conv_fuse(cat)
 
 

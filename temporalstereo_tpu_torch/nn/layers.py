@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.mesh import DataMesh, all_reduce_sum
+from ..parallel.spatial import active_plan
 
 Activation = Union[str, Sequence, None]
 BN_EPS = 1e-5
@@ -287,10 +288,17 @@ class _NormAct:
 
 
 class _CastAtUse:
-    """A convolution that takes its weights ``at_use``."""
+    """A convolution that takes its weights ``at_use``; inside a W-sharded
+    forward (``parallel/spatial.py``) it takes its W halo from the
+    neighbouring ranks."""
 
     def _conv_forward(self, x, weight, bias):
-        return super()._conv_forward(x, at_use(weight, x), at_use(bias, x))
+        weight, bias = at_use(weight, x), at_use(bias, x)
+        plan = active_plan()
+        if plan is not None:
+            return plan.conv(x, weight, bias, self.stride, self.padding,
+                             self.dilation, self.groups)
+        return super()._conv_forward(x, weight, bias)
 
 
 class Conv2d(_CastAtUse, nn.Conv2d, _NormAct):
@@ -316,7 +324,25 @@ class Conv3d(_CastAtUse, nn.Conv3d, _NormAct):
         return self._post(super().forward(x))
 
 
-class ConvTranspose2d(nn.ConvTranspose2d, _NormAct):
+class _Transposed:
+    """A transposed convolution that takes its weights ``at_use`` (and its
+    W halo inside a W-sharded forward)."""
+
+    def forward(self, x):
+        weight, bias = at_use(self.weight, x), at_use(self.bias, x)
+        plan = active_plan()
+        if plan is not None:
+            y = plan.conv_transpose(x, weight, bias, self.stride,
+                                    self.padding, self.output_padding,
+                                    self.groups, self.dilation)
+        else:
+            fn = F.conv_transpose2d if x.dim() == 4 else F.conv_transpose3d
+            y = fn(x, weight, bias, self.stride, self.padding,
+                   self.output_padding, self.groups, self.dilation)
+        return self._post(y)
+
+
+class ConvTranspose2d(_Transposed, nn.ConvTranspose2d, _NormAct):
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=2,
                  padding=1, output_padding=1, bias=True, norm=None,
                  activation=None):
@@ -324,24 +350,14 @@ class ConvTranspose2d(nn.ConvTranspose2d, _NormAct):
                          padding, output_padding, bias=bias)
         self._setup(norm, activation, out_channels)
 
-    def forward(self, x):
-        return self._post(F.conv_transpose2d(
-            x, at_use(self.weight, x), at_use(self.bias, x), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation))
 
-
-class ConvTranspose3d(nn.ConvTranspose3d, _NormAct):
+class ConvTranspose3d(_Transposed, nn.ConvTranspose3d, _NormAct):
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=2,
                  padding=1, output_padding=1, bias=True, norm=None,
                  activation=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, output_padding, bias=bias)
         self._setup(norm, activation, out_channels)
-
-    def forward(self, x):
-        return self._post(F.conv_transpose3d(
-            x, at_use(self.weight, x), at_use(self.bias, x), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation))
 
 
 class ConvGRU(nn.Module):

@@ -14,9 +14,22 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import active_plan
+
 
 def _resize(x: torch.Tensor, size: Sequence[int], axes: Sequence[int],
             mode: str) -> torch.Tensor:
+    """Align-corners resize of ``axes`` to ``size``; inside a W-sharded
+    forward (``parallel/spatial.py``) the last of ``axes`` is the frame's
+    W, resized in the frame's coordinates."""
+    plan = active_plan()
+    if plan is not None:
+        return plan.resize(x, size, axes, mode, _resize_local)
+    return _resize_local(x, size, axes, mode)
+
+
+def _resize_local(x: torch.Tensor, size: Sequence[int], axes: Sequence[int],
+                  mode: str) -> torch.Tensor:
     axes = [a % x.ndim for a in axes]
     if tuple(x.shape[a] for a in axes) == tuple(size):
         return x          # identity short-cut (JAX _apply_axis)

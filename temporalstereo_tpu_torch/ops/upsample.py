@@ -8,14 +8,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import active_plan, width_ratio
 from .interpolate import resize_bilinear
 
 
 def unfold3x3(x: torch.Tensor) -> torch.Tensor:
     """3x3 neighbourhoods: [B, H, W, C] -> [B, H, W, 9, C], window index
-    k = dy * 3 + dx as in ``F.unfold(kernel_size=3, padding=1)``."""
+    k = dy * 3 + dx as in ``F.unfold(kernel_size=3, padding=1)`` (inside a
+    W-sharded forward, the W halo from the neighbouring ranks)."""
     b, h, w, c = x.shape
-    pad = F.pad(x, (0, 0, 1, 1, 1, 1))
+    plan = active_plan()
+    if plan is None:
+        pad = F.pad(x, (0, 0, 1, 1, 1, 1))
+    else:
+        pad = F.pad(plan.halo(x, 2, plan.global_width(w), 1, 1),
+                    (0, 0, 0, 0, 1, 1))
     return torch.stack([pad[:, dy:dy + h, dx:dx + w]
                         for dy in range(3) for dx in range(3)], dim=3)
 
@@ -34,7 +41,13 @@ def convex_upsample(disp: torch.Tensor, mask_logits: torch.Tensor,
     patches = unfold3x3(disp * disp_scale)[..., 0]            # [B, H, W, 9]
     out = (patches[..., None] * mask).sum(dim=3)              # [B, H, W, up*up]
     out = out.reshape(b, h, w, up, up).permute(0, 1, 3, 2, 4)
-    return out.reshape(b, h * up, w * up, 1)
+    out = out.reshape(b, h * up, w * up, 1)
+    plan = active_plan()
+    if plan is not None:
+        # each column's up columns, laid out as the plan lays out their width
+        ranges = plan.part(plan.global_width(w))
+        out = plan.repartition(out, 2, [(up * a, up * b) for a, b in ranges])
+    return out
 
 
 def mask_upsample_9(disp: torch.Tensor, mask_logits: torch.Tensor
@@ -45,5 +58,5 @@ def mask_upsample_9(disp: torch.Tensor, mask_logits: torch.Tensor
     dw = disp.shape[2]
     mask = torch.softmax(mask_logits, dim=-1)
     patches = unfold3x3(disp)[..., 0]                         # [B, dh, dw, 9]
-    patches = resize_bilinear(patches * (w / dw), (h, w))     # [B, H, W, 9]
+    patches = resize_bilinear(patches * width_ratio(w, dw), (h, w))
     return torch.sum(patches * mask, dim=-1, keepdim=True)

@@ -130,27 +130,32 @@ def project_to_3d(depth: torch.Tensor, K: torch.Tensor,
     return out
 
 
-def shift_1d(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+def shift_1d(img: torch.Tensor, shift: torch.Tensor, x0: int = 0,
+             t0: int = 0) -> torch.Tensor:
     """Bilinear sample of a volume along W at ``x + shift``, zero padding.
 
-    img [B, D, H, W, C] (or [B, 1, H, W, C], broadcast over D), shift
+    img [B, D, H, Wt, C] (or [B, 1, H, Wt, C], broadcast over D), shift
     [B, D, H, W] -> [B, D, H, W, C].  Coordinates and taps are f32; the
     result is rounded once to ``img``'s type; out-of-range taps are dropped.
+    Column x of shift and the output is the frame's column ``x0 + x``, and
+    img holds the frame's columns [t0, t0 + Wt) (a W-sharded forward,
+    ``parallel/spatial.py``); by default both start at 0.
     """
     b, d, h, w = shift.shape
-    c = img.shape[-1]
-    src = img.float().expand(b, d, h, w, c)
-    xs = torch.arange(w, dtype=torch.float32, device=shift.device
+    wt, c = img.shape[-2:]
+    src = img.float().expand(b, d, h, wt, c)
+    xs = torch.arange(x0, x0 + w, dtype=torch.float32, device=shift.device
                       ).view(1, 1, 1, w) + shift.float()
-    x0 = torch.floor(xs)
-    fx = xs - x0
+    xf = torch.floor(xs)
+    fx = xs - xf
 
     def tap(xi, weight):
-        weight = weight * ((xi >= 0) & (xi <= w - 1)).float()
-        idx = xi.clamp(0, w - 1).long()[..., None].expand(b, d, h, w, c)
+        xi = xi - t0
+        weight = weight * ((xi >= 0) & (xi <= wt - 1)).float()
+        idx = xi.clamp(0, wt - 1).long()[..., None].expand(b, d, h, w, c)
         return torch.gather(src, 3, idx) * weight[..., None]
 
-    return (tap(x0, 1 - fx) + tap(x0 + 1, fx)).to(img.dtype)
+    return (tap(xf, 1 - fx) + tap(xf + 1, fx)).to(img.dtype)
 
 
 def inverse_warp_3d(img: torch.Tensor, disp: torch.Tensor,

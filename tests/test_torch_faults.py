@@ -26,6 +26,8 @@
    leaves them unchanged, as flax's ``BatchNorm(use_running_average=True)``
    (it was a trainable BatchNorm): a train-mode conv + FrozenBN against
    JAX's at 1e-5, its statistics bit-unchanged.
+The JAX forwards compile with XLA's CPU optimisations off, as in
+tests/test_torch_model.py.
 """
 import re
 import sys
@@ -65,8 +67,8 @@ from temporalstereo_tpu_torch.utils.checkpoint import load_weights
 from temporalstereo_tpu_torch.utils.convert import state_dict_from_jax
 
 from tests.test_torch_cli import _sequence
-from tests.test_torch_model import (TEMPORAL, TINY, _geometry,
-                                    _jax_variables, _rel)
+from tests.test_torch_model import (FAST_COMPILE, TEMPORAL, TINY,
+                                    _geometry, _jax_variables, _rel)
 
 RESIZE_TOL = 1e-5
 ERROR_TXT_TOL = 1e-4
@@ -116,7 +118,8 @@ def jax_single():
 
 def _jax_disps(jmodel, variables, left, right):
     with jax.default_matmul_precision("highest"):
-        out, _ = jax.jit(lambda v, l, r: jmodel.apply(v, l, r, None, False))(
+        out, _ = jax.jit(lambda v, l, r: jmodel.apply(v, l, r, None, False),
+                         compiler_options=FAST_COMPILE)(
             variables, jnp.asarray(left), jnp.asarray(right))
     return out["disps"]
 
@@ -261,7 +264,8 @@ def test_group_instance_layer_norm_model_matches_jax():
         with jax.default_matmul_precision("highest"):
             jout, jprev = jax.jit(
                 lambda v, l, r, p, warp=f > 0: jax_streaming_step(
-                    jmodel, v, l, r, p, K, baseline, T, warp=warp))(
+                    jmodel, v, l, r, p, K, baseline, T, warp=warp),
+                compiler_options=FAST_COMPILE)(
                 variables, jnp.asarray(left), jnp.asarray(right), jprev)
         with torch.inference_mode():
             tout, tprev = streaming_step(

@@ -6,7 +6,8 @@ own carried state.  Each test prints what it measured (``pytest -s``).
    stage, IN fine, LN precise; 96x128, 3 cm sideways and 5 cm forward a
    frame) for five frames: every disparity within 2e-3 on the first frame
    and 5e-3 on the streamed ones, the model tests' tolerances (measured:
-   2.2e-6 at most, on every frame).
+   2.2e-6 at most, on every frame), JAX compiled with XLA's CPU
+   optimisations off as in tests/test_torch_model.py.
 2. The stream that ``chip_smoke.py`` phase 15 runs (GN in the FPN, IN
    coarse, LN fine, FrozenBN precise; 96x160, 2 cm sideways and 0.5 m
    forward a frame), on JAX's weights: from JAX's state after the first
@@ -48,8 +49,8 @@ from temporalstereo_tpu_torch.models.stereo import (PrevInfo,
                                                     update_prev_info)
 from temporalstereo_tpu_torch.utils.convert import state_dict_from_jax
 
-from tests.test_torch_model import (TEMPORAL, TINY, _geometry,
-                                    _jax_variables, _rel)
+from tests.test_torch_model import (FAST_COMPILE, TEMPORAL, TINY,
+                                    _geometry, _jax_variables, _rel)
 
 SINGLE_TOL, TEMPORAL_TOL = 2e-3, 5e-3
 FAULTS_NORMS = ["MODEL.BACKBONE.NORM", "GN",
@@ -97,7 +98,7 @@ def _scaled(tree, rng, eps):
     return jax.tree.map(leaf, tree)
 
 
-def _setup(norms, h, w, motion):
+def _setup(norms, h, w, motion, compiler_options=None):
     opts = TINY + TEMPORAL + norms
     jmodel = jax_build_model(jax_get_cfg(opts=opts), dtype=None)
     variables = _jax_variables(jmodel, h, w, seed=55)
@@ -109,7 +110,8 @@ def _setup(norms, h, w, motion):
     T[0, 0, 3], T[0, 2, 3] = motion
     geometry = tuple(jnp.asarray(a) for a in (K, baseline, T))
     steps = {warp: jax.jit(lambda v, l, r, p, warp=warp: jax_streaming_step(
-        jmodel, v, l, r, p, *geometry, warp=warp)) for warp in (False, True)}
+        jmodel, v, l, r, p, *geometry, warp=warp),
+        compiler_options=compiler_options) for warp in (False, True)}
     jprev = jax_init_prev(jmodel, 1, (h, w),
                           jax_memory_shapes(jmodel.backbone_cfg, (h, w)), 2,
                           jnp.float32, local_map_channels=0)
@@ -119,8 +121,8 @@ def _setup(norms, h, w, motion):
 
 def test_gn_stream_matches_jax_frame_by_frame_from_jax_state():
     h, w = 96, 128
-    model, variables, steps, jprev, _, tgeo = _setup(FAULTS_NORMS, h, w,
-                                                     (0.03, -0.05))
+    model, variables, steps, jprev, _, tgeo = _setup(
+        FAULTS_NORMS, h, w, (0.03, -0.05), FAST_COMPILE)
     rng = np.random.RandomState(56)
     worst = []
     for f in range(5):

@@ -39,7 +39,16 @@ a T=3 window at global B=2, one sample a rank) the ranks run:
     only rank 0 writes under its ``LOG_DIR`` and logs images, the ranks'
     validation tables are equal, each resume restores rank 0's saved
     step and state, and the tables, parameters and statistics equal the
-    single-process fit's within ``DP_TOL``.
+    single-process fit's within ``FIT_TOL``.  Both sides run one thread
+    (``FIT_THREADS``): a train-mode BatchNorm on the CPU reduces a
+    channels-last input (the images' NHWC layout, permuted) in blocks of
+    the thread count, and the fit amplifies that rounding.  The single
+    process against itself at 1, 2 and 8 threads moved the tables by up
+    to 1.3e-2 relative, the parameters by 4.0e-5 and the statistics by
+    4.8e-2 of their max; the ranks against it at one thread, 3.2e-4,
+    1.1e-5 and 3.5e-3.  ``FIT_TOL`` is that one-thread gap with a margin
+    of about 3; it fails a fit whose BatchNorms take each rank's own
+    statistics, or whose gradients are not summed over the ranks.
 The mesh's layout is held to JAX's ``TIME_MAJOR_KEYS`` sharding, and its
 refusals and ``init_distributed``'s choice of backend are checked.
 """
@@ -92,6 +101,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 2
 DEADLINE = 300
 DP_TOL, DP_GRAD_TOL, EVAL_TOL = 1e-5, 1e-4, 1e-6
+# the fit's bounds: the ranks' gap at one thread, with a margin of ~3
+FIT_TOL = {"table": 1e-3, "param": 3e-5, "stat": 1e-2}
+FIT_THREADS = 1                 # tests/torch_parallel_ranks.py's
 OPTS = TINY + ["OPTIMIZER.RMSPROP.LR", "1e-6"]
 VIS = ["VAL.VIS_BATCH_INDEX", "1", "TRAINER.VIS_EVERY_N_TRAIN_STEPS", "1"]
 
@@ -234,6 +246,15 @@ def _single_step(job):
 
 
 def _single_fit(opts, resume_opts):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(FIT_THREADS)
+    try:
+        return _fit_legs(opts, resume_opts)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _fit_legs(opts, resume_opts):
     legs = []
     for o in (opts, resume_opts):
         tables = []
@@ -411,10 +432,10 @@ def test_two_rank_fit_matches_single_process_fit(runs):
         assert len(ours["tables"]) == len(ref["tables"]) == 1
         for k, v in ref["tables"][0].items():
             got = ours["tables"][0][k]
-            assert abs(got - v) <= DP_TOL * max(abs(v), 1e-3), \
+            assert abs(got - v) <= FIT_TOL["table"] * max(abs(v), 1e-3), \
                 f"{k}: {got} vs {v}"
-        _assert_close(ours["params"], ref["params"], DP_TOL, 0.0, "param")
-        _assert_close(ours["stats"], ref["stats"], DP_TOL, 0.0, "stat")
+        for part, what in (("params", "param"), ("stats", "stat")):
+            _assert_close(ours[part], ref[part], FIT_TOL[what], 0.0, what)
 
 
 def test_shard_batch_follows_jax_layout_and_round_trips():
