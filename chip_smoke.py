@@ -168,7 +168,11 @@ non-zero exit code and no result line:
 Phase 3 also holds the cost base and the shift at a column offset (a
 shard's columns against the whole target, as the sharded forward calls
 them) against their plain versions, and bit-equal to the slice of the
-full-width call.
+full-width call (the shift beside F.grid_sample on the same columns), and
+the shift forward's other launch plans against the plain shift: a row too
+wide for one block's shared memory (channel slices), a non-broadcast img
+(Di = D), C = 12 (one channel a thread), integer shifts and shifts all out
+of range.
 It imports nothing of JAX and needs one card.
 """
 import json
@@ -444,18 +448,20 @@ def model_like_disparity(torch, g, b, d, h, w, dev):
     return disp.contiguous()
 
 
-def _grid_sample_yardstick(torch, img, shift):
-    """F.grid_sample computing the shift on the same data (img [B,1,H,W,C]
-    read as [B,C,H,W], the D hypotheses as D*H output rows, align_corners so
-    that pixel x is x): (forward closure, backward closure)."""
+def _grid_sample_yardstick(torch, img, shift, x0=0):
+    """F.grid_sample computing the shift on the same data (img [B,1,H,Wt,C]
+    read as [B,C,H,Wt], the D hypotheses as D*H output rows, align_corners
+    so that pixel x is x; shift's column x is img's column x0 + x):
+    (forward closure, backward closure)."""
     import torch.nn.functional as F
 
     b, d, h, w = shift.shape
+    wt = img.shape[3]
     img_nchw = img[:, 0].permute(0, 3, 1, 2).contiguous()
-    xs = torch.arange(w, device=img.device).view(1, 1, 1, w) + shift
+    xs = torch.arange(x0, x0 + w, device=img.device).view(1, 1, 1, w) + shift
     ys = torch.arange(h, device=img.device, dtype=torch.float32).view(
         1, 1, h, 1).expand(b, d, h, w)
-    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)
+    grid = torch.stack([2 * xs / (wt - 1) - 1, 2 * ys / (h - 1) - 1], -1)
     grid = grid.reshape(b, d * h, w, 2).to(img.dtype)
 
     def forward(x=img_nchw, g=grid):
@@ -630,10 +636,11 @@ def phase_offset_kernels(torch, kernels, detail):
             if not (ok and same):
                 raise AssertionError(f"shift_1d offset {stage} {dname}: "
                                      f"plain {ok}, full-width slice {same}")
+            lib_fwd, _ = _grid_sample_yardstick(torch, img, shift, x0)
             row = _row(stage, [1, d, h, wr, c], dname, err,
                        cuda_ms(lambda: kernels.shift_1d(img, shift, x0, 0)),
                        cuda_ms(lambda: kernels.shift_1d_plain(
-                           img, shift, x0, 0), 10), None,
+                           img, shift, x0, 0), 10), cuda_ms(lib_fwd),
                        h * w * c * size + d * h * wr * 4
                        + d * h * wr * c * size,
                        dev_ms=device_ms(lambda: kernels.shift_1d(
@@ -641,7 +648,62 @@ def phase_offset_kernels(torch, kernels, detail):
                        case=f"offset x0={x0} of {w}, img {w} wide")
             detail.setdefault("shift_1d", []).append(row)
             _log_row("shift_1d", row, COST_TOL[dname])
-            del ref, tgt, disp, part, full, out, plain, img, shift
+            del ref, tgt, disp, part, full, out, plain, img, shift, lib_fwd
+    torch.cuda.empty_cache()
+
+
+# (case, (B, Di, H, W, C, D)) of the shift forward's other launch plans
+SHIFT_CASES = (("wide row", (1, 1, 8, 1248, 128, 5)),
+               ("img not broadcast", (2, 5, 16, 148, 128, 5)),
+               ("C=12", (2, 1, 16, 148, 12, 8)),
+               ("C=12, img not broadcast", (2, 8, 16, 148, 12, 8)))
+
+
+def phase_shift_cases(torch, kernels, detail):
+    """Phase 3, the shift forward's other launch plans against the plain
+    shift, bf16 and f32: a row too wide for one block (channel slices), a
+    non-broadcast img, C = 12 (one channel a thread); hypotheses over the
+    row and past both edges, integer ones, and ones all out of range (the
+    output exactly 0)."""
+    from temporalstereo_tpu_torch.kernels.launches import shift_forward_plan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    for case, (b, di, h, w, c, d) in SHIFT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            img = torch.randn((b, di, h, w, c), generator=g,
+                              device=dev).to(dtype)
+            disp = (torch.rand((b, d, h, w), generator=g, device=dev)
+                    * (w + 8.0) - 4.0)
+            far = w + 2.0 + torch.rand((b, d, h, w), generator=g,
+                                       device=dev) * w
+            side = torch.rand((b, d, h, w), generator=g, device=dev) < 0.5
+            plan = shift_forward_plan(w, w, c, d if di == 1 else 1,
+                                      img.element_size(), b * di * h)
+            for kind, shift in (("uniform", -disp),
+                                ("integer", -torch.round(disp)),
+                                ("out of range", torch.where(side, -far,
+                                                             far))):
+                out = kernels.shift_1d(img, shift)
+                plain = kernels.shift_1d_plain(img, shift)
+                torch.cuda.synchronize()
+                err, ok = close(out, plain, *COST_TOL[dname])
+                if kind == "out of range":
+                    ok = ok and not bool(out.any())
+                detail["shift_1d"].append({
+                    "stage": "plan", "case": f"{case}, {kind}",
+                    "shape": [b, d, h, w, c], "img": [b, di, h, w, c],
+                    "dtype": dname, "plan": list(plan), "max_abs_err": err})
+                log(3, f"shift_1d plan {case}, {kind} {dname} img "
+                    f"[{b},{di},{h},{w},{c}] x D={d}: plan (slices, "
+                    f"hypotheses a block, shared bytes) {plan}, max|d| "
+                    f"{err:.3g} (tol {COST_TOL[dname][0]:g}*|p| + "
+                    f"{COST_TOL[dname][1]:g}*max|p|)")
+                if not ok:
+                    raise AssertionError(f"shift_1d {case}, {kind} {dname} "
+                                         "disagrees with its plain version")
+            del img, disp, far, side, out, plain
     torch.cuda.empty_cache()
 
 
@@ -3852,6 +3914,8 @@ def kernels_line(detail, launches_by_path):
 def main():
     import torch
 
+    t_start = time.perf_counter()
+
     # --only=3,19: a development run of phases 1, 2 and those named; it
     # prints no kernels line and no result line
     only = next((set(a.split("=", 1)[1].split(","))
@@ -3890,7 +3954,10 @@ def main():
     if only is not None:
         if "3" in only:
             detail = phase_kernels(torch, kernels)
+            phase_splat(torch, kernels, detail)
+            phase_train_kernels(torch, kernels, detail)
             phase_offset_kernels(torch, kernels, detail)
+            phase_shift_cases(torch, kernels, detail)
         if "19" in only:
             phase_spatial(torch, port, kernels, card)
         print(f"chip_smoke: partial run of phases 1, 2, {sorted(only)}",
@@ -3900,6 +3967,7 @@ def main():
     phase_splat(torch, kernels, detail)
     phase_train_kernels(torch, kernels, detail)
     phase_offset_kernels(torch, kernels, detail)
+    phase_shift_cases(torch, kernels, detail)
     phase_card_vs_cpu(torch, port)
     phase_train_card_vs_cpu(torch, port)
     launches = {"stream": phase_flagship(torch, port, kernels, card)}
@@ -3928,6 +3996,8 @@ def main():
     (launches["spatial_tiny_gloo2"], launches["spatial_kitti_gloo2_f32"],
      launches["spatial_kitti_gloo2_bf16"],
      launches["spatial_nccl1"]) = phase_spatial(torch, port, kernels, card)
+    log(20, f"chip_smoke took {time.perf_counter() - t_start:.1f} s on "
+        f"{card}")
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

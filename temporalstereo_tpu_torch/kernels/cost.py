@@ -46,19 +46,26 @@ def _stage_bytes(elem_size):
     return PAIRS * (16 + 2 * SLICE * elem_size)
 
 
+# the C entry points' parameters, in order (a pointer or the stream passed
+# as an int would be cut to 32 bits)
+ARGTYPES = {
+    "fused_cost_base": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                        + [ctypes.c_void_p]),
+    "fused_cost_base_backward": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                                 + [ctypes.c_void_p]),
+}
+
+
 def _kernels():
     if not _FNS:
         from .build import load
 
-        fwd = load("fused_cost_base").fused_cost_base
-        fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                        + [ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
-        bwd = load("fused_cost_base_backward").fused_cost_base_backward
-        bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                        + [ctypes.c_void_p])
-        bwd.restype = ctypes.c_int
-        _FNS.update(forward=fwd, backward=bwd)
+        for key, name in (("forward", "fused_cost_base"),
+                          ("backward", "fused_cost_base_backward")):
+            fn = getattr(load(name), name)
+            fn.argtypes = ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _FNS[key] = fn
     return _FNS
 
 

@@ -31,12 +31,24 @@
 // backward reads g and img and writes grad_img (in img's type) and
 // grad_shift: 62.1 / 173.5 MB (19 / 52 us).
 //
-// Forward design: one thread per (b, d, h, x, group of 8 channels), the
-// group index fastest, so a pixel's 16 threads (C = 128) issue contiguous
-// 16-byte loads and stores; C % 8 != 0 takes one channel per thread.  The
-// TPU kernel builds a W x W one-hot interpolation matrix per row for the
-// MXU; on this card a 2-tap gather from L1/L2 is cheaper.  The img rows are
-// re-read for every hypothesis and stay in L2.
+// Forward design: a block of 256 threads per (img row, slice of channels,
+// block of hypotheses), from the wrapper's plan (kernels/launches.py:
+// shift_forward_plan).  The block stages its row slice [Wt][Cs] with
+// 16-byte cp.async and its hypotheses' shift rows in shared memory, then
+// its threads, [256 / NV][NV] with NV = Cs / V (a pixel's slice is one row
+// of threads), walk the (d, x) pixels two at a time: both taps from shared
+// memory, one 16-byte streaming store (__stcs) per thread and pixel.  All
+// indices are 32-bit and come from blockIdx and threadIdx; a broadcast row
+// is staged once for a block of hypotheses.  C % 8 != 0 takes one channel a
+// thread (V = 1).  The earlier design (a thread per 16-byte output, its
+// flat index split by 64-bit divisions, both taps gathered from L2)
+// reached 49% / 54% of the bound in bf16 at the training shapes; this one
+// 83% / 79% (0.0199 / 0.0555 ms device, NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 3).  The W-sharded stream's fine stage writes 7.5 MB
+// and stays near half its bound: a fill of that output alone takes 0.0032
+// ms against 0.0028 (scripts/port_shift_forward_sweep.py).  The TPU kernel
+// builds a W x W one-hot interpolation matrix per row for the MXU; on this
+// card the two taps are read from shared memory.
 //
 // Backward design (row_owner.cuh): the img gradient is a scatter along W.
 // A float atomicAdd to shared memory is a compare-and-swap loop on sm_90a,
@@ -56,65 +68,153 @@
 
 namespace {
 
-using tsk::loadv;
 using tsk::PAIRS;
 using tsk::SLICE;
 using tsk::Stage;
 using tsk::store1;
-using tsk::storev;
 using tsk::Taps;
 using tsk::to_f32;
 
-struct Pixel {
-  int cv, x, h, d, b;
-};
+// The forward's blocks: FWD_THREADS threads as [FWD_THREADS / NV][NV],
+// NV = the slice's channels / V, so a pixel's slice is one row of threads.
+constexpr int FWD_THREADS = 256;
+constexpr int UNROLL = 2;            // pixels a thread has in flight
 
-__device__ __forceinline__ Pixel split(long long i, int NV, int W, int H,
-                                       int D) {
-  Pixel p;
-  p.cv = (int)(i % NV);
-  long long t = i / NV;
-  p.x = (int)(t % W); t /= W;
-  p.h = (int)(t % H); t /= H;
-  p.d = (int)(t % D);
-  p.b = (int)(t / D);
-  return p;
+// V channels: a 16-byte chunk (8 bf16, 4 f32), or 1.
+template <int V, typename T>
+__device__ __forceinline__ void loadv(const T* p, float* v) {
+  if constexpr (V > 1) tsk::load_chunk(p, v);
+  else v[0] = to_f32(*p);
 }
 
+// The output is written once: streaming stores (evict-first in L1 and L2).
+__device__ __forceinline__ void store_cs(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void storev(T* p, const float* v) {
+  if constexpr (V > 1) store_cs(p, v);
+  else store1(p, v[0]);
+}
+
+// Bytes of a staged img row slice, padded so that the shift rows after it
+// stay 16-byte aligned.
+__host__ __device__ __forceinline__ long long row_bytes(int Wt, int Cs,
+                                                        int size) {
+  return ((long long)Wt * Cs * size + 15) / 16 * 16;
+}
+
+// One pixel's V channels of one hypothesis, from the staged row: o = 0,
+// o += (1-f) a0, o += f a1, each tap only where it lies in the row (the
+// order and rounding of the earlier one-thread-per-output design, whose
+// results this one reproduces bit for bit).
 template <typename T, int V>
-__global__ void __launch_bounds__(256)
-shift_1d_forward_kernel(const T* __restrict__ img,
-                        const float* __restrict__ shift, T* __restrict__ out,
-                        int B, int D, int Di, int H, int W, int C, int x0,
-                        int t0, int Wt) {
-  const int NV = C / V;
-  const long long total = (long long)B * D * H * W * NV;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const Pixel p = split(i, NV, W, H, D);
-  const long long pix = (((long long)p.b * D + p.d) * H + p.h) * W + p.x;
-  const long long row =
-      (((long long)p.b * Di + (Di == 1 ? 0 : p.d)) * H + p.h) * Wt;
-  const float xs = (float)(x0 + p.x) + shift[pix];
+__device__ __forceinline__ void interpolate(const T* row, int Cs, float xs,
+                                            float lo, float hi, int t0,
+                                            float o[V]) {
   const float x0f = floorf(xs);
   const float fx = xs - x0f;
   const float x1f = x0f + 1.f;
-  const float lo = (float)t0, hi = (float)(t0 + Wt - 1);
-
-  float o[V], a[V];
+  float a[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) o[k] = 0.f;
   if (x0f >= lo && x0f <= hi) {
-    loadv<V>(img + (row + (int)x0f - t0) * C + p.cv * V, a);
+    loadv<V>(row + ((int)x0f - t0) * Cs, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) o[k] += (1.f - fx) * a[k];
   }
   if (x1f >= lo && x1f <= hi) {
-    loadv<V>(img + (row + (int)x1f - t0) * C + p.cv * V, a);
+    loadv<V>(row + ((int)x1f - t0) * Cs, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) o[k] += fx * a[k];
   }
-  storev<V>(out + pix * C + p.cv * V, o);
+}
+
+// (d, x) of a flat index d * W + x, carried forward without a division
+// until it crosses a row.
+__device__ __forceinline__ void wrap(int& x, int& d, int W) {
+  if (x >= W) {
+    const int k = x / W;
+    d += k;
+    x -= k * W;
+  }
+}
+
+// One block per (img row, channel slice, block of hypotheses).  The img
+// row's slice [Wt][Cs] and the block's shift rows [per][W] are staged in
+// shared memory; then each thread walks pixels (d, x) of the block, UNROLL
+// at a time, and writes its V channels of each.
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS)
+shift_1d_forward_kernel(const T* __restrict__ img,
+                        const float* __restrict__ shift, T* __restrict__ out,
+                        int D, int Di, int H, int W, int C, int x0, int t0,
+                        int Wt, int S, int per) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Cs = C / S;
+  const int nb = Di == 1 ? (D + per - 1) / per : 1;
+  const int q = blockIdx.x / nb, r = q / S;   // r: the img row (b, di, h)
+  const int s = q - r * S;
+  const int h = r % H, bd = r / H, b = bd / Di;
+  const int d0 = Di == 1 ? (blockIdx.x - q * nb) * per : bd - b * Di;
+  const int dn = Di == 1 ? min(per, D - d0) : 1;
+  const int tx = threadIdx.x, ty = threadIdx.y, TY = blockDim.y;
+  T* row = reinterpret_cast<T*>(smem);
+  float* sh = reinterpret_cast<float*>(smem + row_bytes(Wt, Cs, sizeof(T)));
+
+  const T* src = img + (long long)r * Wt * C + s * Cs + tx * V;
+  for (int t = ty; t < Wt; t += TY) {
+    if constexpr (V > 1) tsk::cp16(row + t * Cs + tx * V, src + t * C);
+    else row[t * Cs + tx] = src[t * C];
+  }
+  tsk::cp_commit();
+  const long long plane = (long long)H * W;
+  const float* srow = shift + ((long long)b * D + d0) * plane
+                      + (long long)h * W;
+  const int threads = blockDim.x * TY;
+  for (int d = 0; d < dn; ++d)
+    for (int x = ty * blockDim.x + tx; x < W; x += threads)
+      sh[d * W + x] = srow[d * plane + x];
+  tsk::cp_wait<0>();
+  __syncthreads();
+
+  T* dst = out + (((long long)b * D + d0) * plane + (long long)h * W) * C
+           + s * Cs + tx * V;
+  const T* tap = row + tx * V;
+  const float lo = (float)t0, hi = (float)(t0 + Wt - 1);
+  const long long dstride = plane * C;
+  int x[UNROLL], d[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    x[u] = ty + u * TY;
+    d[u] = 0;
+    wrap(x[u], d[u], W);
+  }
+  while (d[0] < dn) {
+    float o[UNROLL][V];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (d[u] < dn)
+        interpolate<T, V>(tap, Cs, (float)(x0 + x[u]) + sh[d[u] * W + x[u]],
+                          lo, hi, t0, o[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (d[u] < dn) storev<V>(dst + d[u] * dstride + x[u] * C, o[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      x[u] += UNROLL * TY;
+      wrap(x[u], d[u], W);
+    }
+  }
 }
 
 // A pair's ring entry: g, img tap 0, img tap 1 (32 each).
@@ -257,27 +357,33 @@ shift_1d_backward_kernel(const T* __restrict__ g, const T* __restrict__ img,
                Dw, W, C, HW, c, lane);
 }
 
-constexpr int THREADS = 256;
-
-unsigned blocks_for(long long total) {
-  return (unsigned)((total + THREADS - 1) / THREADS);
-}
-
 template <typename T>
 cudaError_t forward(const void* img, const void* shift, void* out, int B,
                     int D, int Di, int H, int W, int C, int x0, int t0,
-                    int Wt, cudaStream_t stream) {
-  const int V = C % tsk::GROUP == 0 ? tsk::GROUP : 1;
-  const long long total = (long long)B * D * H * W * (C / V);
-  if (total == 0) return cudaSuccess;
-  if (V == tsk::GROUP)
-    shift_1d_forward_kernel<T, 8><<<blocks_for(total), THREADS, 0, stream>>>(
-        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C, x0,
-        t0, Wt);
-  else
-    shift_1d_forward_kernel<T, 1><<<blocks_for(total), THREADS, 0, stream>>>(
-        (const T*)img, (const float*)shift, (T*)out, B, D, Di, H, W, C, x0,
-        t0, Wt);
+                    int Wt, int slices, int per, int smem,
+                    cudaStream_t stream) {
+  if ((long long)B * D * H * W * C == 0) return cudaSuccess;
+  const int V = C % tsk::GROUP == 0 ? tsk::Chunk<T>::N : 1;
+  const int Dh = Di == 1 ? D : 1;
+  // (more shared memory than a block may have: cudaFuncSetAttribute below
+  // returns cudaErrorInvalidValue)
+  if (slices < 1 || C % slices != 0 || (C / slices) % V != 0 ||
+      C / slices / V > FWD_THREADS || per < 1 || per > Dh ||
+      smem < row_bytes(Wt, C / slices, sizeof(T)) + 4LL * per * W)
+    return cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)B * Di * H * slices * ((Dh + per - 1) / per);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int nv = C / slices / V;
+  const dim3 block(nv, FWD_THREADS / nv);
+  auto kernel = V == 1 ? shift_1d_forward_kernel<T, 1>
+                       : shift_1d_forward_kernel<T, tsk::Chunk<T>::N>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, block, smem, stream>>>(
+      (const T*)img, (const float*)shift, (T*)out, D, Di, H, W, C, x0, t0, Wt,
+      slices, per);
   return cudaGetLastError();
 }
 
@@ -303,20 +409,25 @@ cudaError_t backward(const void* g, const void* img, const void* shift,
 
 // dtype: 0 = float32, 1 = bfloat16 (img and out); shift is float32.
 // shift and out are [B,D,H,W] at the frame's column x0, img [B,Di,H,Wt,C] at
-// column t0.  Returns the cudaError_t of the launch (0 on success).
+// column t0.  The launch plan (kernels/launches.py:shift_forward_plan):
+// C / slices channels per block, per hypotheses per block of a broadcast
+// img (1 otherwise), smem bytes of shared memory; a plan that does not
+// cover the shape or does not fit returns cudaErrorInvalidValue.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int shift_1d_forward(const void* img, const void* shift, void* out,
                                 int B, int D, int Di, int H, int W, int C,
-                                int x0, int t0, int Wt, int dtype, int device,
+                                int x0, int t0, int Wt, int slices, int per,
+                                int smem, int dtype, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)forward<float>(img, shift, out, B, D, Di, H, W, C, x0, t0, Wt,
-                               s);
+                               slices, per, smem, s);
   if (dtype == 1)
     return (int)forward<__nv_bfloat16>(img, shift, out, B, D, Di, H, W, C, x0,
-                                       t0, Wt, s);
+                                       t0, Wt, slices, per, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -82,19 +82,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
   }
 }
 
-// V channels per thread: 8 as 16-byte vectors, or 1.
-template <int V, typename T>
-__device__ __forceinline__ void loadv(const T* p, float* v) {
-  if constexpr (V == 8) load8<true>(p, v);
-  else v[0] = to_f32(*p);
-}
-
-template <int V, typename T>
-__device__ __forceinline__ void storev(T* p, const float* v) {
-  if constexpr (V == 8) store8<true>(p, v);
-  else store1(p, v[0]);
-}
-
 // Sum of v over each aligned segment of `seg` lanes (a power of two <= 32).
 // Every lane of the warp must call it.
 __device__ __forceinline__ float segment_sum(float v, int seg) {

@@ -26,7 +26,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .launches import (LAUNCHES, PAIRS, SHARDED_NO_GRAD, SLICE,
-                       check_no_grad, cuda_device_index, row_plan)
+                       check_no_grad, cuda_device_index, row_plan,
+                       shift_forward_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -37,18 +38,26 @@ _RING_ELEMS = 3 * SLICE
 _STAGE_BYTES = PAIRS * 16
 
 
+# the C entry points' parameters, in order (a pointer or the stream passed
+# as an int would be cut to 32 bits)
+ARGTYPES = {
+    "shift_1d_forward": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+                         + [ctypes.c_void_p]),
+    "shift_1d_backward": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                          + [ctypes.c_void_p]),
+}
+
+
 def _kernels():
     if not _FNS:
         from .build import load
 
         lib = load("shift_1d")
-        fwd, bwd = lib.shift_1d_forward, lib.shift_1d_backward
-        fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                        + [ctypes.c_void_p])
-        bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                        + [ctypes.c_void_p])
-        fwd.restype = bwd.restype = ctypes.c_int
-        _FNS.update(forward=fwd, backward=bwd)
+        for key in ("forward", "backward"):
+            fn = getattr(lib, f"shift_1d_{key}")
+            fn.argtypes = ARGTYPES[f"shift_1d_{key}"]
+            fn.restype = ctypes.c_int
+            _FNS[key] = fn
     return _FNS
 
 
@@ -86,12 +95,16 @@ def _dims(img, shift):
 def _forward(img, shift, x0=0, t0=0):
     device = cuda_device_index("shift_1d", img, shift)
     b, d, di, h, w, c = _dims(img, shift)
+    wt = img.shape[3]
+    # a block's img row serves its D hypotheses when broadcast, else one
+    slices, per, shared = shift_forward_plan(wt, w, c, d if di == 1 else 1,
+                                             img.element_size(), b * di * h)
     out = torch.empty((b, d, h, w, c), dtype=img.dtype, device=img.device)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = _kernels()["forward"](img.data_ptr(), shift.data_ptr(),
                                 out.data_ptr(), b, d, di, h, w, c, x0, t0,
-                                img.shape[3], _DTYPES[img.dtype], device,
-                                stream)
+                                wt, slices, per, shared, _DTYPES[img.dtype],
+                                device, stream)
     if err:
         raise RuntimeError(f"shift_1d: launch failed, CUDA error {err}")
     LAUNCHES["shift_1d"] += 1
@@ -156,4 +169,6 @@ def shift_1d(img: torch.Tensor, shift: torch.Tensor, x0: int = 0,
         check_no_grad("shift_1d with column offsets", img, shift,
                       reason=SHARDED_NO_GRAD)
         return _forward(img, shift, x0, t0)
-    return _Shift1d.apply(img, shift)
+    if torch.is_grad_enabled() and (img.requires_grad or shift.requires_grad):
+        return _Shift1d.apply(img, shift)
+    return _forward(img, shift)   # nothing to differentiate: no autograd node

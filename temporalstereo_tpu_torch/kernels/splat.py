@@ -23,6 +23,10 @@ from .launches import LAUNCHES, check_no_grad, cuda_device_index
 MODES = ("summation", "average", "linear", "softmax")
 MAX_TILE = 128               # targets per block (csrc/softsplat.cu)
 _FN = None
+# the C entry point's parameters, in order
+ARGTYPES = {"softsplat": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] + [ctypes.c_longlong] * 11
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])}
 
 
 def _kernel():
@@ -31,9 +35,7 @@ def _kernel():
         from .build import load
 
         fn = load("softsplat").softsplat
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_longlong] * 11
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ARGTYPES["softsplat"]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
