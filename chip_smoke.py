@@ -7,7 +7,7 @@ Phases, each printed on its own line; any failure ends the script with a
 non-zero exit code and no result line:
   1. environment: torch / CUDA versions, card name and power limit;
   2. build: every hand-written kernel, compiled with nvcc from the checkout,
-     and the native data library with g++;
+     and the native data library with g++ (the zstd decoder in phase 20);
   3. each kernel against its plain PyTorch version on the card, with the
      stated tolerances and times (the wrapper's, CUDA events around many
      calls, and the kernel's own device time from torch.profiler): the
@@ -21,6 +21,13 @@ non-zero exit code and no result line:
      against torch autograd of the plain version, run twice to show it
      deterministic), the backwards on uniform hypotheses and on model-like
      ones (a smooth disparity field and the cascade's offsets around it);
+     the splat's gradient: the backward kernel against its plain gather,
+     and the whole softsplat's backward (autograd through the kernel)
+     against autograd of the plain version, in all four modes, at the
+     splat's two shapes and three flows, each twice and bit-identical,
+     as accurate against the plain version in f64 as the plain f32 one
+     (SPLAT_BWD_TOL); then ops.softsplat differentiated from zeroed
+     counts (one forward, one normaliser, one backward launch);
   4. the tiny model on the card (kernels) against the same model on the
      CPU (plain versions), f32, TF32 off: three streamed frames, then one
      training step (T=3) with BLOCK_COST_SCALE 3 and 0 (its losses and
@@ -63,19 +70,20 @@ non-zero exit code and no result line:
      temporalstereo_tpu_torch.cli.kitti_submission on the same split;
  10. training: python -m temporalstereo_tpu_torch.cli.train with
      configs/kitti2015-multi.yaml at full width (v2s, bf16, B=4,
-     320x1184, T=11, 8 process workers; validation at 384x1248, B=1) on
-     a synthetic KITTI 2015 split of 8 train and 2 val samples: one
-     epoch of 2 steps (cut from 2 epochs to keep the script inside its
-     limit) with validation and a checkpoint, SWA from half-way with its
-     BatchNorm re-estimate, a warm start from a .pth of the seeded model,
-     then test(); exact launch counts, checkpoints and finite tables; the
-     fit's step time against phase 6's, loader wait, checkpoint time and
-     size, SWA finish, eval time per sample, peak memory; a resume from
-     its checkpoints in this process for one more epoch (every restored
-     tensor bit-equal to the file, the step and the SWA count carried
-     on); one trainer step under torch.profiler; then
-     temporalstereo_tpu_torch.cli.sanity_train (v2s, bf16, 256x512, B=4,
-     150 steps), whose EPE must fall;
+     320x1184, 8 thread workers; validation at 384x1248, B=1) on
+     3-frame windows (SHORT_WINDOW: each loader worker builds a whole
+     batch first) of a synthetic KITTI 2015 split of 8 train and 2 val
+     samples: one epoch of 2 steps (cut from 2 epochs to keep the script
+     inside its limit) with validation and a checkpoint, SWA from
+     half-way with its BatchNorm re-estimate, a warm start from a .pth of
+     the seeded model, then test(); exact launch counts, checkpoints and finite
+     tables; the fit's step time against phase 6's, loader wait, checkpoint
+     time and size, SWA finish, eval time per sample, peak memory; a resume
+     from its checkpoints in this process for one more epoch (every restored
+     tensor bit-equal to the file, the step and the SWA count carried on); one
+     trainer step under torch.profiler; then
+     temporalstereo_tpu_torch.cli.sanity_train (v2s, bf16, 256x512, B=4, 130
+     steps), whose train-batch EPE must at least halve;
  11. the demo: python -m temporalstereo_tpu_torch.cli.demo (run in this
      process) with configs/kitti2015-multi.yaml at 384x1248 over a
      synthetic KITTI 2015 split of two 11-frame samples: a panel PNG a
@@ -117,7 +125,7 @@ non-zero exit code and no result line:
  17. the native data library: its g++ build (phase 2), a 375x1242 RGB
      Paeth PNG decoded natively and in numpy (bit-equal, ms each), one
      KITTI 2015 val sample built on one core each way, and phase 9's val
-     loader (2 process workers, native) with make_eval_step over 8
+     loader (2 process workers, native) with make_eval_step over 6
      samples of Paeth PNGs: wait and step per sample, the step's share of
      the loop once the batches the pool held ahead are consumed;
  18. data parallelism (torch.distributed ranks; every kernel is built
@@ -129,7 +137,7 @@ non-zero exit code and no result line:
      grad_norm, gradients, parameters, BatchNorm statistics, eval metrics
      and weight, within DP_TOL; the ranks bit-equal); (b) two gloo ranks at
      full width (kitti2015-multi, v2s, bf16, 320x1184, T=11, global B=4),
-     each sample's images scaled by its own factor, 2 steps: the stem
+     each sample's images scaled by its own factor, one step: the stem
      BatchNorm's running statistics against one process at B=4 (within
      DP_STEM_TOL), finite, the ranks bit-equal; the first step's loss
      terms and every statistic reported beside one process's own spread
@@ -137,7 +145,8 @@ non-zero exit code and no result line:
      step ms, peak memory and the gradient bucket's all-reduce alone
      (gloo through the host); (c) python -m
      temporalstereo_tpu_torch.cli.train --multihost at world size 1 under
-     NCCL (kitti2015-multi, FAST_DEV_RUN, a synthetic KITTI 2015 split:
+     NCCL (kitti2015-multi, FAST_DEV_RUN, 3-frame windows of a synthetic
+     KITTI 2015 split, thread workers:
      finite tables, one checkpoint, exact launches), then in this process
      the mesh's step against the plain one over 2 steps (the first step's
      loss terms gated at DP_NCCL_TOL, bit-equality reported; the second
@@ -164,7 +173,13 @@ non-zero exit code and no result line:
      process's, the exchanges a frame and the cost base's launches a
      rank; (c) a spatial size of 1 under NCCL: bit-equal to the plain
      forward, with no collective kernel in its trace;
- 20. one JSON line listing every kernel, then the result line.
+ 20. the JAX package's orbax checkpoints read without orbax, tensorstore,
+     JAX or a zstd module: the zstd decoder's g++ build, then the
+     committed fixture tests/data/orbax_fixture read by utils/orbax.py,
+     every leaf bit-equal to scripts/make_orbax_fixture.py's numpy
+     regeneration from its seed;
+ 21. every phase's seconds, the script's, one JSON line listing every
+     kernel (with its launches on each path), then the result line.
 Phase 3 also holds the cost base and the shift at a column offset (a
 shard's columns against the whole target, as the sharded forward calls
 them) against their plain versions, and bit-equal to the slice of the
@@ -409,10 +424,12 @@ def _row(stage, shape, dtype, err, ms, plain_ms, library_ms, nbytes,
 
 
 def _log_row(name, row, tol):
+    tol_text = (tol if isinstance(tol, str)
+                else f"{tol[0]:g}*|p| + {tol[1]:g}*max|p|")
     log(3, f"{name} {row['stage']}"
         + (f" {row['case']}" if "case" in row else "")
         + f" {row['dtype']} {row['shape']}: max|d| "
-        f"{row['max_abs_err']:.3g} (tol {tol[0]:g}*|p| + {tol[1]:g}*max|p|)"
+        f"{row['max_abs_err']:.3g} (tol {tol_text})"
         + (f", run-to-run {row['run_to_run']:.3g}" if "run_to_run" in row
            else "")
         + f", kernel {row['ms']:.4f} ms"
@@ -807,6 +824,171 @@ def phase_splat(torch, kernels, detail):
                                          f"two runs differ by {spread:.3g}")
 
 
+# the splat's gradient, kernel against plain: the kernel's gradient (the
+# backward kernel alone, and the whole softsplat's backward through
+# autograd) may be no further from the plain version's in f64 than twice
+# the plain version's own f32 gradient is, plus 1e-6 of the largest f64
+# value.  The f32 flow gradient cancels terms (the taps' weights change in
+# opposite directions), so f32 alone sits far from f64 in some rows; the
+# kernel forms every product as the plain version does and only the sums
+# over channels run in another order
+SPLAT_BWD_TOL = (2.0, 1e-6)
+
+
+def _splat_grad_leaves(torch, mode, inputs, flow, metric):
+    """The leaves of one gradient row: summation splats the softmax mode's
+    weighted values [inputs e^m, e^m]; linear weighs by |m| + 1 (linear
+    weights are positive importances); average takes no metric."""
+    if mode == "summation":
+        return torch.cat([inputs * metric.exp(), metric.exp()], -1), flow, \
+            None
+    if mode == "linear":
+        return inputs, flow, metric.abs() + 1
+    return inputs, flow, None if mode == "average" else metric
+
+
+def _softsplat_f64(inputs, flow, metric, mode, eps=1e-22):
+    """softsplat_plain's arithmetic in f64 (softsplat_plain takes f32)."""
+    from temporalstereo_tpu_torch.kernels.splat import (_summation_plain,
+                                                        _weighted)
+
+    out = _summation_plain(_weighted(inputs, metric, mode), flow)
+    return out if mode == "summation" else out[..., :-1] / (out[..., -1:]
+                                                            + eps)
+
+
+def _as_accurate(kernel, plain, ref, floor):
+    """(max |kernel - plain|, its largest share of max|plain| over the
+    tensors, ok): ok if each kernel tensor is within SPLAT_BWD_TOL of
+    ``ref`` (the plain version in f64)."""
+    worst, rel, ok = 0.0, 0.0, True
+    for k, p, r in zip(kernel, plain, ref):
+        r = r.double()
+        own = float((p.double() - r).abs().max())
+        err = float((k.double() - r).abs().max())
+        ok &= err <= SPLAT_BWD_TOL[0] * own + floor * float(r.abs().max())
+        gap = float((k.double() - p.double()).abs().max())
+        worst = max(worst, gap)
+        rel = max(rel, gap / max(float(p.abs().max()), 1e-30))
+    return worst, rel, ok
+
+
+def phase_splat_backward(torch, kernels, detail):
+    """Phase 3, the splat's gradient: the backward kernel
+    (csrc/softsplat_backward.cu) against summation_splat_vjp_plain on the
+    values each mode splats, and the whole softsplat's backward (autograd
+    through kernels.softsplat: one forward launch for the normaliser, one
+    backward launch) against autograd of softsplat_plain, in all four
+    modes, at the stream's and the training step's shapes, on the forward
+    phase's three flows; each twice, the two bit-identical.  Then
+    ops.softsplat differentiated once at the training shape from zeroed
+    counts -> those launches."""
+    from temporalstereo_tpu_torch.kernels.splat import _weighted
+    from temporalstereo_tpu_torch.ops import softsplat as ops_softsplat
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    detail["softsplat_backward"] = []
+    for path, (b, h, w) in SPLAT_SHAPES:
+        for case in ("uniform", "rigid", "one_target"):
+            base = splat_inputs(torch, case, b, h, w, g, dev)
+            for mode in ("summation", "average", "linear", "softmax"):
+                leaves = _splat_grad_leaves(torch, mode, *base)
+                x, flow, metric = leaves
+                vals = _weighted(x, metric, mode)
+                c = vals.shape[-1]
+                g_vals = torch.randn(vals.shape, generator=g, device=dev)
+                g_out = torch.randn(x.shape, generator=g, device=dev)
+
+                def bare(v=vals, f=flow, gv=g_vals):
+                    return kernels.summation_splat_vjp(v, f, gv)
+                first, second = bare(), bare()
+                plain = kernels.summation_splat_vjp_plain(vals, flow, g_vals)
+                ref = kernels.summation_splat_vjp_plain(
+                    vals.double(), flow.double(), g_vals.double())
+                torch.cuda.synchronize()
+                err, rel, ok = _as_accurate(first, plain, ref,
+                                            SPLAT_BWD_TOL[1])
+                same_values = torch.equal(first[0], plain[0])
+                spread = _spread(first, second)
+                same = all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+                used = [t for t in leaves if t is not None]
+                grads_k, backward_k = _autograd(
+                    torch, lambda *a: kernels.softsplat(
+                        *a[:2], a[2] if len(a) == 3 else None, mode),
+                    used, g_out)
+                again = backward_k()
+                grads_p, backward_p = _autograd(
+                    torch, lambda *a: kernels.softsplat_plain(
+                        *a[:2], a[2] if len(a) == 3 else None, mode),
+                    used, g_out)
+                grads_r, _ = _autograd(
+                    torch, lambda *a: _softsplat_f64(
+                        *a[:2], a[2] if len(a) == 3 else None, mode),
+                    [t.double() for t in used], g_out.double())
+                torch.cuda.synchronize()
+                err_vjp, rel_vjp, ok_vjp = _as_accurate(
+                    grads_k, grads_p, grads_r, SPLAT_BWD_TOL[1])
+                same_vjp = all(torch.equal(a, b_)
+                               for a, b_ in zip(grads_k, again))
+
+                ms, lo, hi = cuda_ms_spread(bare)
+                nbytes = b * h * w * (12 * c + 16)
+                row = _row(path, [b, h, w, c], "float32", err, ms,
+                           cuda_ms(lambda: kernels.summation_splat_vjp_plain(
+                               vals, flow, g_vals), 10),
+                           None, nbytes, spread,
+                           device_ms(bare, "softsplat_backward"),
+                           f"{mode} {case}", (lo, hi))
+                row.update(max_rel_err=rel, softsplat_vjp_max_abs_err=err_vjp,
+                           softsplat_vjp_max_rel_err=rel_vjp,
+                           softsplat_vjp_ms=cuda_ms(backward_k, 20),
+                           softsplat_vjp_plain_ms=cuda_ms(backward_p, 10),
+                           main=(path, mode, case) == ("train", "softmax",
+                                                       "rigid"))
+                detail["softsplat_backward"].append(row)
+                _log_row("softsplat_backward", row,
+                         f"|k - f64| <= {SPLAT_BWD_TOL[0]:g}*|plain - f64| "
+                         f"+ {SPLAT_BWD_TOL[1]:g}*max|f64|")
+                log(3, f"  max|d| / max|plain| {rel:.3g}; softsplat {mode} "
+                    f"backward through autograd (forward + normaliser + "
+                    f"backward kernel + torch): max|d| {err_vjp:.3g} "
+                    f"({rel_vjp:.3g} of max|plain|) against autograd of the "
+                    f"plain version, {row['softsplat_vjp_ms']:.4f} ms (plain "
+                    f"{row['softsplat_vjp_plain_ms']:.4f} ms); g_values "
+                    f"bit-equal to the plain gather {same_values}")
+                if not (ok and ok_vjp):
+                    raise AssertionError(
+                        f"softsplat_backward {path} {mode} {case} is less "
+                        f"accurate than its plain version ({err:.3g}, "
+                        f"{err_vjp:.3g})")
+                if not (same and same_vjp):
+                    raise AssertionError(
+                        f"softsplat_backward {path} {mode} {case}: two runs "
+                        "differ")
+
+    b, h, w = dict(SPLAT_SHAPES)["train"]
+    leaves = [t.detach().requires_grad_() for t in splat_inputs(
+        torch, "rigid", b, h, w, g, dev)]
+    g_out = torch.randn(leaves[0].shape, generator=g, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.autograd.backward(ops_softsplat(*leaves, mode="softmax"), g_out)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {name: 0 for name in launches}
+    want.update(softsplat=2, softsplat_backward=1)
+    log(3, f"ops.softsplat softmax differentiated at {[b, h, w]}: launches "
+        f"{launches}; gradients finite "
+        f"{all(bool(torch.isfinite(t.grad).all()) for t in leaves)}")
+    if launches != want or not all(bool(torch.isfinite(t.grad).all())
+                                   for t in leaves):
+        raise AssertionError(f"ops.softsplat's gradient launched {launches},"
+                             f" want {want}")
+    return launches
+
+
 def run_stream(torch, port, cfg, device, frames, h, w, seed=0, sync=False,
                camera=(720.0, 0.54)):
     """Stream ``frames`` seeded frames through the port -> (per-frame
@@ -888,7 +1070,7 @@ def phase_flagship(torch, port, kernels, card, frames=12, warm=4):
         raise AssertionError("local map did not grow to 3 channels")
     want = {"fused_cost_base": 2 * frames, "fused_cost_base_backward": 0,
             "shift_1d": 0, "shift_1d_backward": 0,
-            "softsplat": frames - 1}
+            "softsplat": frames - 1, "softsplat_backward": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     steady = sorted(secs[warm:])
@@ -1085,7 +1267,8 @@ def phase_flagship_train(torch, port, kernels, card, steps=3):
     MEASURED["train_step_s"] = secs
     want = {"fused_cost_base": 2 * t * steps,
             "fused_cost_base_backward": 2 * steps, "shift_1d": 0,
-            "shift_1d_backward": 0, "softsplat": (t - 1) * steps}
+            "shift_1d_backward": 0, "softsplat": (t - 1) * steps,
+            "softsplat_backward": 0}
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
     # RMSProp moves a weight by at most lr * |g| / sqrt(0.01 g^2) = 10 lr;
@@ -1116,7 +1299,7 @@ def phase_no_pyramid_train(torch, port, kernels):
                                                   1)
     want = {"fused_cost_base": 0, "fused_cost_base_backward": 0,
             "shift_1d": 2 * t, "shift_1d_backward": 2,
-            "softsplat": t - 1}
+            "softsplat": t - 1, "softsplat_backward": 0}
     if launches != want:
         raise AssertionError(f"BLOCK_COST_SCALE 0 launch counts {launches} "
                              f"!= {want}")
@@ -1775,8 +1958,19 @@ def phase_eval(torch, port, kernels, card):
 # the fit phase: the training entry point at full width
 FIT_TRAIN_SAMPLES = 8           # 2 steps an epoch at the YAML's B=4
 FIT_VAL_SAMPLES = 2
-FIT_EPOCHS = 1                  # each epoch restarts the 8 loader workers
-SANITY_STEPS = 150             # the JAX CLI's default is 1000
+FIT_EPOCHS = 1                  # each epoch restarts the loader workers
+# the JAX CLI's default is 1000; the train-batch EPE must halve, and the
+# card's nondeterministic backward spreads it (59.64 -> 13.5-25.3 px after
+# 100 steps, 10.4-16.6 after 150, in PR 13-14's runs)
+SANITY_STEPS = 130
+# the loader-bound CLI runs (phases 10 and 18 (c)) train full-width
+# kitti2015-multi on 3-frame windows: each loader worker builds a whole
+# batch before the first step, 25-46 s for 11 frames on this host
+SHORT_WINDOW = [-2, -1, 0]
+SHORT_WINDOW_OPTS = [opt for key in ("FRAME_IDXS", "DATA.TRAIN.FRAME_IDXS",
+                                     "DATA.VAL.FRAME_IDXS",
+                                     "DATA.TEST.FRAME_IDXS")
+                     for opt in (key, str(SHORT_WINDOW))]
 
 
 def _train_summary(text):
@@ -1796,7 +1990,8 @@ def _fit_launches(t, steps, evals, forwards):
     windows = steps + evals + forwards
     return {"fused_cost_base": 2 * t * windows,
             "fused_cost_base_backward": 2 * steps, "shift_1d": 0,
-            "shift_1d_backward": 0, "softsplat": (t - 1) * windows}
+            "shift_1d_backward": 0, "softsplat": (t - 1) * windows,
+            "softsplat_backward": 0}
 
 
 def _ms(summary, key):
@@ -1831,16 +2026,16 @@ def phase_fit(torch, port, kernels, card):
 
     t_phase = time.perf_counter()
     repo = pathlib.Path(__file__).resolve().parent
-    cfg0 = port.get_cfg(KITTI)
+    cfg0 = port.get_cfg(KITTI, SHORT_WINDOW_OPTS)
     t = len(cfg0.DATA.TRAIN.FRAME_IDXS)
     b = cfg0.DATA.TRAIN.BATCH_SIZE
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
         tmp = pathlib.Path(tmp)
         t0 = time.perf_counter()
         train_ann = write_kitti2015_split(str(tmp / "train"),
-                                          FIT_TRAIN_SAMPLES, EVAL_FRAMES)
+                                          FIT_TRAIN_SAMPLES, SHORT_WINDOW)
         val_ann = write_kitti2015_split(str(tmp / "val"), FIT_VAL_SAMPLES,
-                                        EVAL_FRAMES, seed=1)
+                                        SHORT_WINDOW, seed=1)
         written = time.perf_counter() - t0
         weights = str(tmp / "seeded.pth")
         model = port.build_model(cfg0, seed=0)
@@ -1856,7 +2051,12 @@ def phase_fit(torch, port, kernels, card):
                 "TRAINER.FLUSH_LOGS_EVERY_N_STEPS", "1",
                 "TRAINER.LOG_EVERY_N_STEPS", "1",
                 "DATA.TRAIN.DATA_ROOT", str(tmp / "train"),
-                "DATA.TRAIN.ANNFILE", train_ann]
+                "DATA.TRAIN.ANNFILE", train_ann, *SHORT_WINDOW_OPTS,
+                # the train loader on threads: its process pool took ~20 s
+                # to start on the card's host, twice in this phase; the
+                # val and test loaders keep process workers, as phases 9
+                # and 17 do
+                "DATA.TRAIN.PROCESS_WORKERS", "False"]
         for phase in ("VAL", "TEST"):
             opts += [f"DATA.{phase}.DATA_ROOT", str(tmp / "val"),
                      f"DATA.{phase}.ANNFILE", val_ann]
@@ -1896,20 +2096,18 @@ def phase_fit(torch, port, kernels, card):
                 not (exp / "weights_final.pth").exists():
             raise AssertionError(f"cli.train checkpoints {saved_steps}")
         bare = MEASURED["train_step_s"][1:]
-        fit_steps = cli["step_s"]["all"]
         log(10, f"cli.train kitti2015-multi v2s bf16 B={b} "
             f"{cfg0.DATA.TRAIN.HEIGHT}x{cfg0.DATA.TRAIN.WIDTH} T={t}, "
             f"{FIT_TRAIN_SAMPLES} train + {FIT_VAL_SAMPLES} val samples "
             f"(split written in {written:.1f} s), {FIT_EPOCHS} epochs of "
             f"{steps // FIT_EPOCHS} steps, {cfg0.DATA.TRAIN.NUM_WORKERS} "
-            f"process workers: warm start {n_warm[0]} tensors, SWA "
+            f"thread workers: warm start {n_warm[0]} tensors, SWA "
             f"{cli['swa_count']} snapshots, checkpoints {saved_steps}; "
             f"process wall {cli_wall:.1f} s on {card}")
         log(10, f"fit step ms (synchronised by the loss read-back) "
-            f"{_ms(cli, 'step_s')} against phase 6's bare step ms "
-            f"{[round(1e3 * x, 1) for x in bare]} (median ratio "
-            f"{np.median(fit_steps[1:]) / np.median(bare):.3f} after the "
-            f"first); loader wait per step ms {_ms(cli, 'loader_wait_s')}; "
+            f"{_ms(cli, 'step_s')} (T={t}; phase 6's bare T=11 step ms "
+            f"{[round(1e3 * x, 1) for x in bare]}); loader wait per step "
+            f"ms {_ms(cli, 'loader_wait_s')}; "
             f"checkpoint save ms {_ms(cli, 'checkpoint_s')} of "
             f"{[round(x, 1) for x in cli['checkpoint_mb']['all']]} MB; SWA "
             f"finish ms {_ms(cli, 'swa_finish_s')}; val and test ms per "
@@ -2085,7 +2283,8 @@ def phase_demo(torch, port, kernels, card):
         raise AssertionError(f"demo: EPE/3PE not finite: {summary}")
     want = {"fused_cost_base": 2 * t * DEMO_SAMPLES,
             "fused_cost_base_backward": 0, "shift_1d": 0,
-            "shift_1d_backward": 0, "softsplat": (t - 1) * DEMO_SAMPLES}
+            "shift_1d_backward": 0, "softsplat": (t - 1) * DEMO_SAMPLES,
+            "softsplat_backward": 0}
     if launches != want or summary["launches"] != want:
         raise AssertionError(f"demo launches {launches}, want {want}")
     log(11, f"demo kitti2015-multi v2s bf16 {h}x{w} T={t}, {DEMO_SAMPLES} "
@@ -2136,7 +2335,8 @@ def phase_tools(card):
     prof = summary["launches"]
     want = {"fused_cost_base": 4 * PROFILE_ITERS,
             "fused_cost_base_backward": 2 * PROFILE_ITERS, "shift_1d": 0,
-            "shift_1d_backward": 0, "softsplat": PROFILE_ITERS}
+            "shift_1d_backward": 0, "softsplat": PROFILE_ITERS,
+            "softsplat_backward": 0}
     if prof != want:
         raise AssertionError(f"profile_step launches {prof}, want {want}")
     if not (0 < summary["busy_share"] <= 1 and summary["top"]):
@@ -2239,7 +2439,8 @@ def phase_remat(torch, port, kernels, card):
     frames_fwd = 2 * REMAT_T
     want_plain = {"fused_cost_base": frames_fwd,
                   "fused_cost_base_backward": frames_fwd, "shift_1d": 0,
-                  "shift_1d_backward": 0, "softsplat": REMAT_T - 1}
+                  "shift_1d_backward": 0, "softsplat": REMAT_T - 1,
+                  "softsplat_backward": 0}
     log(13, f"BPTT kitti2015-multi v2s bf16 B={b} {h}x{w} T={REMAT_T}: "
         f"loss plain {pm['loss']:.8g} / again {qm['loss']:.8g} / REMAT "
         f"{rm['loss']:.8g} (rel {loss_rel:.3g}); gradients, ||d|| / "
@@ -2357,7 +2558,8 @@ FROZEN_NORMS = ["MODEL.BACKBONE.NORM", "FrozenBN"] + [
 SINGLE_TOL = 2e-3               # single-frame / streamed model tolerances
 STREAM_TOL = CARD_VS_CPU_TOL
 SURFACE_TOL = {"op": 1e-5, "block": 1e-4}   # card vs CPU, f32, TF32 off
-NATIVE_SAMPLES = 8
+NATIVE_SAMPLES = 6              # the 4 the pool holds ahead (2 workers +
+                                # a prefetch of 2) and 2 for the steady loop
 NOISE = 1e-7                    # phase 15 scales a state by 1 + N(0, NOISE^2)
 
 
@@ -2441,7 +2643,8 @@ def phase_norms(torch, port, kernels, card, frames=12):
     out = {}
     stream_want = {"fused_cost_base": 2 * frames,
                    "fused_cost_base_backward": 0, "shift_1d": 0,
-                   "shift_1d_backward": 0, "softsplat": frames - 1}
+                   "shift_1d_backward": 0, "softsplat": frames - 1,
+                   "softsplat_backward": 0}
     for label, opts in (("BN", []), ("GN", GN_NORMS)):
         cfg = port.get_cfg(KITTI, opts)
         torch.cuda.empty_cache()
@@ -2519,7 +2722,8 @@ def phase_norms(torch, port, kernels, card, frames=12):
         torch, port, kernels, cfg, 2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"fused_cost_base": 2 * t * 2, "fused_cost_base_backward": 4,
-            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": (t - 1) * 2}
+            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": (t - 1) * 2,
+            "softsplat_backward": 0}
     if launches != want:
         raise AssertionError(f"norms GN training launches {launches} != "
                              f"{want}")
@@ -2910,6 +3114,7 @@ DP_STEM_TOL = 1e-3
 # deterministic and this random-weight window amplifies it
 DP_NCCL_TOL = 2e-3
 DP_VAL_SAMPLES = 2
+DP_FULL_STEPS = 1               # (b)'s steps on each rank
 
 
 def _free_port():
@@ -3201,7 +3406,7 @@ def _dp_full(torch, port, kernels, card, tmp):
     spread = [max(loss_gaps(r[1]).values()) for r in runs[1:]]
     del model, params, stats, state, step, batch, shuffled, runs
     torch.cuda.empty_cache()
-    torch.save({"global_batch": b, "steps": 2}, tmp / "full.pt")
+    torch.save({"global_batch": b, "steps": DP_FULL_STEPS}, tmp / "full.pt")
     ranks = _run_ranks(torch, tmp, "full")
     if any(r["digest"] != digest for r in ranks):
         raise AssertionError("phase 18 (b): a rank's seeded weights differ "
@@ -3219,10 +3424,11 @@ def _dp_full(torch, port, kernels, card, tmp):
     stats_gap = _max_rel_tree(ranks[0]["stats"], single["stats"], 1e-6 * top)
     finite = all(math.isfinite(v) for r in ranks for m in r["metrics"]
                  for v in m.values())
-    want = _fit_launches(t, 2, 0, 0)
+    want = _fit_launches(t, DP_FULL_STEPS, 0, 0)
     log(18, f"(b) two gloo ranks on one card, kitti2015-multi v2s bf16 "
         f"{h}x{w} T={t}, global B={b} ({b // DP_WORLD} a rank, each "
-        f"sample's images scaled by 0.4-1.3), 2 steps from seed 0 against "
+        f"sample's images scaled by 0.4-1.3), {DP_FULL_STEPS} step from seed "
+        f"0 against "
         f"one process at B={b}: the stem BatchNorm's running statistics "
         f"{stem_gap:.3g} of their max (tol {DP_STEM_TOL}), every "
         f"statistic {stats_gap:.3g}; first step loss terms "
@@ -3262,13 +3468,15 @@ def _dp_nccl(torch, port, kernels, card, tmp):
     cfg = port.get_cfg(KITTI)
     t, b = len(cfg.DATA.TRAIN.FRAME_IDXS), cfg.DATA.TRAIN.BATCH_SIZE
     h, w = cfg.DATA.TRAIN.HEIGHT, cfg.DATA.TRAIN.WIDTH
-    train_ann = write_kitti2015_split(str(tmp / "train"), b, EVAL_FRAMES)
+    train_ann = write_kitti2015_split(str(tmp / "train"), b, SHORT_WINDOW)
     val_ann = write_kitti2015_split(str(tmp / "val"), DP_VAL_SAMPLES,
-                                    EVAL_FRAMES, seed=1)
+                                    SHORT_WINDOW, seed=1)
     opts = ["LOG_DIR", str(tmp / "exps"), "TRAINER.FAST_DEV_RUN", "True",
             "TRAINER.CHECK_VAL_EVERY_N_EPOCHS", "1",
             "DATA.TRAIN.DATA_ROOT", str(tmp / "train"),
-            "DATA.TRAIN.ANNFILE", train_ann]
+            "DATA.TRAIN.ANNFILE", train_ann, *SHORT_WINDOW_OPTS,
+            # thread workers for training, as in phase 10
+            "DATA.TRAIN.PROCESS_WORKERS", "False"]
     for phase in ("VAL", "TEST"):
         opts += [f"DATA.{phase}.DATA_ROOT", str(tmp / "val"),
                  f"DATA.{phase}.ANNFILE", val_ann]
@@ -3291,7 +3499,7 @@ def _dp_nccl(torch, port, kernels, card, tmp):
     tables = re.findall(r"disparity_0/all +([-0-9. ]+)", out.stdout)
     # one step (SWA starts at 0.8 of 16 epochs: not reached), the val and
     # test samples, one image log each
-    want = _fit_launches(t, 1, 2 * DP_VAL_SAMPLES, 2)
+    want = _fit_launches(len(SHORT_WINDOW), 1, 2 * DP_VAL_SAMPLES, 2)
     if (cli["launches"] != want or saved != [1] or len(tables) != 2
             or not all(math.isfinite(float(x)) for row in tables
                        for x in row.split())):
@@ -3299,8 +3507,9 @@ def _dp_nccl(torch, port, kernels, card, tmp):
                              f"{cli['launches']} (want {want}), checkpoints "
                              f"{saved}, tables {tables}")
     log(18, f"(c) python -m temporalstereo_tpu_torch.cli.train --multihost "
-        f"(RANK 0, WORLD_SIZE 1, NCCL), kitti2015-multi FAST_DEV_RUN on a "
-        f"synthetic KITTI 2015 split ({b} train, {DP_VAL_SAMPLES} val "
+        f"(RANK 0, WORLD_SIZE 1, NCCL), kitti2015-multi FAST_DEV_RUN "
+        f"T={len(SHORT_WINDOW)} on a synthetic KITTI 2015 split ({b} "
+        f"train, {DP_VAL_SAMPLES} val "
         f"samples): finite tables, checkpoints {saved}, launches "
         f"{cli['launches']}, step ms {_ms(cli, 'step_s')}, process wall "
         f"{wall:.1f} s")
@@ -3862,6 +4071,59 @@ def phase_spatial(torch, port, kernels, card):
     return launches
 
 
+ORBAX_FIXTURE = "tests/data/orbax_fixture"
+ORBAX_SCRIPT = "scripts/make_orbax_fixture.py"
+
+
+def phase_orbax():
+    """Phase 20: the JAX package's orbax checkpoints read without orbax,
+    tensorstore, JAX or a zstd module (none is imported; the phase prints
+    which are installed): the zstd decoder built with g++, then the
+    committed fixture (tests/data/orbax_fixture, written by
+    scripts/make_orbax_fixture.py with the JAX package's
+    CheckpointManager) read by utils/orbax.py, every leaf bit-equal to the
+    script's numpy regeneration from its seed."""
+    import importlib.util
+
+    from temporalstereo_tpu_torch.utils import orbax, zstd
+
+    repo = pathlib.Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    installed = [m for m in ("orbax", "tensorstore", "zstandard", "jax")
+                 if importlib.util.find_spec(m) is not None]
+    zstd.library()
+    spec = importlib.util.spec_from_file_location("make_orbax_fixture",
+                                                  repo / ORBAX_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    want = script.fixture_tree()
+    t0 = time.perf_counter()
+    got = orbax.read_checkpoint(repo / ORBAX_FIXTURE)
+    read_s = time.perf_counter() - t0
+    hparams = orbax.load_hparams(repo / ORBAX_FIXTURE)
+    got_flat, want_flat = _leaves(got), _leaves(want)
+    unequal = [i for i, (a, b) in enumerate(zip(got_flat, want_flat))
+               if type(a) is not type(b) or a.dtype != b.dtype
+               or a.shape != b.shape or a.tobytes() != b.tobytes()]
+    loaded = sorted(m for m in ("orbax", "tensorstore", "zstandard", "jax")
+                    if m in sys.modules)
+    nbytes = sum(v.nbytes for v in got_flat)
+    log(20, f"orbax fixture {ORBAX_FIXTURE} (step "
+        f"{orbax.latest_step(repo / ORBAX_FIXTURE)}, hparams {hparams}): "
+        f"zstd decoder g++ build {zstd.BUILD['seconds']:.2f} s (built "
+        f"{zstd.BUILD['built']}); read {len(got_flat)} leaves, {nbytes} "
+        f"bytes, in {1e3 * read_s:.1f} ms; leaves unequal to the seed's "
+        f"regeneration {unequal}; opt_state's empty tuple "
+        f"{got['opt_state'][2]!r}; of orbax, tensorstore, zstandard and jax "
+        f"installed here {installed}, imported {loaded}; phase 20 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if (unequal or len(got_flat) != len(want_flat) or loaded
+            or got["opt_state"][2] != () or hparams is None
+            or sorted(got) != sorted(want)):
+        raise AssertionError(f"phase 20: the fixture read back wrong "
+                             f"({unequal}, imported {loaded})")
+
+
 KERNEL_SOURCES = {
     "fused_cost_base": ("fused_cost_base.cu",
                         "temporalstereo_tpu/ops/pallas/cost.py:118",
@@ -3878,6 +4140,10 @@ KERNEL_SOURCES = {
     "softsplat": ("softsplat.cu", "temporalstereo_tpu/ops/pallas/splat.py:72",
                   "one temporal update of the flagship stream (softmax, "
                   "rigid flow)"),
+    "softsplat_backward": (
+        "softsplat_backward.cu", "temporalstereo_tpu/ops/pallas/splat.py:104",
+        "the splat's vjp at the training step's temporal update (softmax, "
+        "rigid flow): the backward kernel alone"),
 }
 
 
@@ -3951,52 +4217,75 @@ def main():
             if "registers" in line or "spill" in line:
                 log(2, f"  {name}: {line.strip()}")
 
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        """fn(*args), its seconds added to the phase's."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[phase] = round(seconds.get(phase, 0.0)
+                                   + time.perf_counter() - t0, 1)
+
+    def kernel_phases():
+        detail = phase_kernels(torch, kernels)
+        phase_splat(torch, kernels, detail)
+        splat_grad = phase_splat_backward(torch, kernels, detail)
+        phase_train_kernels(torch, kernels, detail)
+        phase_offset_kernels(torch, kernels, detail)
+        phase_shift_cases(torch, kernels, detail)
+        return detail, splat_grad
+
     if only is not None:
         if "3" in only:
-            detail = phase_kernels(torch, kernels)
-            phase_splat(torch, kernels, detail)
-            phase_train_kernels(torch, kernels, detail)
-            phase_offset_kernels(torch, kernels, detail)
-            phase_shift_cases(torch, kernels, detail)
+            timed(3, kernel_phases)
         if "19" in only:
-            phase_spatial(torch, port, kernels, card)
+            timed(19, phase_spatial, torch, port, kernels, card)
+        if "20" in only:
+            timed(20, phase_orbax)
+        log(21, f"phase seconds {seconds}")
         print(f"chip_smoke: partial run of phases 1, 2, {sorted(only)}",
               flush=True)
         return 0
-    detail = phase_kernels(torch, kernels)
-    phase_splat(torch, kernels, detail)
-    phase_train_kernels(torch, kernels, detail)
-    phase_offset_kernels(torch, kernels, detail)
-    phase_shift_cases(torch, kernels, detail)
-    phase_card_vs_cpu(torch, port)
-    phase_train_card_vs_cpu(torch, port)
-    launches = {"stream": phase_flagship(torch, port, kernels, card)}
-    launches["train"] = phase_flagship_train(torch, port, kernels, card)
-    launches["train_block_cost_scale_0"] = phase_no_pyramid_train(
-        torch, port, kernels)
-    launches["stream_graphs"] = phase_serving(torch, port, kernels, card)
-    phase_cli(torch, port, card)
-    phase_bench(card)
-    launches["eval"] = phase_eval(torch, port, kernels, card)
-    launches["fit"], launches["fit_resume"] = phase_fit(torch, port,
-                                                        kernels, card)
-    launches["demo"] = phase_demo(torch, port, kernels, card)
-    launches["benchmark_ops"], launches["profile_step"] = phase_tools(card)
-    launches["remat_t3"], launches["remat_t11"] = phase_remat(
-        torch, port, kernels, card)
-    phase_planner(torch, port, card)
+    detail, splat_grad = timed(3, kernel_phases)
+    launches = {"splat_grad": splat_grad}
+    timed(4, phase_card_vs_cpu, torch, port)
+    timed(4, phase_train_card_vs_cpu, torch, port)
+    launches["stream"] = timed(5, phase_flagship, torch, port, kernels, card)
+    launches["train"] = timed(6, phase_flagship_train, torch, port, kernels,
+                              card)
+    launches["train_block_cost_scale_0"] = timed(
+        7, phase_no_pyramid_train, torch, port, kernels)
+    launches["stream_graphs"] = timed(8, phase_serving, torch, port, kernels,
+                                      card)
+    timed(8, phase_cli, torch, port, card)
+    timed(8, phase_bench, card)
+    launches["eval"] = timed(9, phase_eval, torch, port, kernels, card)
+    launches["fit"], launches["fit_resume"] = timed(
+        10, phase_fit, torch, port, kernels, card)
+    launches["demo"] = timed(11, phase_demo, torch, port, kernels, card)
+    launches["benchmark_ops"], launches["profile_step"] = timed(
+        12, phase_tools, card)
+    launches["remat_t3"], launches["remat_t11"] = timed(
+        13, phase_remat, torch, port, kernels, card)
+    timed(14, phase_planner, torch, port, card)
     (launches["norms_stream"], launches["norms_bundle"],
-     launches["norms_train"]) = phase_norms(torch, port, kernels, card)
-    launches["surface"] = phase_surface(torch, port, kernels, card)
-    launches["eval_native"] = phase_native(torch, port, kernels, card,
-                                           native_info)
+     launches["norms_train"]) = timed(15, phase_norms, torch, port, kernels,
+                                      card)
+    launches["surface"] = timed(16, phase_surface, torch, port, kernels, card)
+    launches["eval_native"] = timed(17, phase_native, torch, port, kernels,
+                                    card, native_info)
     (launches["train_dp_gloo2"], launches["train_dp_gloo2_full"],
-     launches["fit_multihost"]) = phase_data_parallel(torch, port, kernels,
-                                                      card)
+     launches["fit_multihost"]) = timed(18, phase_data_parallel, torch, port,
+                                        kernels, card)
     (launches["spatial_tiny_gloo2"], launches["spatial_kitti_gloo2_f32"],
      launches["spatial_kitti_gloo2_bf16"],
-     launches["spatial_nccl1"]) = phase_spatial(torch, port, kernels, card)
-    log(20, f"chip_smoke took {time.perf_counter() - t_start:.1f} s on "
+     launches["spatial_nccl1"]) = timed(19, phase_spatial, torch, port,
+                                        kernels, card)
+    timed(20, phase_orbax)
+    log(21, f"phase seconds {seconds}")
+    log(21, f"chip_smoke took {time.perf_counter() - t_start:.1f} s on "
         f"{card}")
     print(kernels_line(detail, launches), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ hash covers the source, the flags and the host, so an edited source or
 another machine builds anew.  Concurrent first uses (test workers, loader
 processes) build once: under a lock file, to a temporary name, then
 ``os.replace``.  A failed build raises with the compiler's message.
+``build`` also compiles the port's other host library, the zstd decoder
+of ``utils/zstd.py``.
 
 ``formats.py``, ``png.py`` and ``transforms.py`` call it by default, where
 the JAX package's data path calls its library; their numpy paths run only
@@ -47,34 +49,40 @@ def resolve(use_native: Optional[bool]) -> bool:
     return True if use_native is None else bool(use_native)
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
+def library_path(source: Optional[Path] = None, stem: str = "tsnative"
+                 ) -> Path:
+    source = SOURCE if source is None else source
+    digest = hashlib.sha256(source.read_bytes() + " ".join(
         CXXFLAGS + [platform.machine(), platform.node()]).encode())
-    return BUILD_DIR / f"libtsnative_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, object]:
-    """Compile the library unless it exists -> {"path", "built", "seconds",
-    "log"}.  Raises RuntimeError with the compiler's output if g++ fails."""
-    target = library_path()
+def build(source: Optional[Path] = None, stem: str = "tsnative"
+          ) -> Dict[str, object]:
+    """Compile the library of ``source`` (this module's by default) into
+    ``lib<stem>_<hash>.so`` unless it exists -> {"path", "built",
+    "seconds", "log"}.  Raises RuntimeError with the compiler's output if
+    g++ fails."""
+    source = SOURCE if source is None else source
+    target = library_path(source, stem)
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     built, log = False, ""
-    with open(BUILD_DIR / "tsnative.lock", "w") as lock:
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not target.exists():
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", str(tmp),
-                   str(SOURCE)]
+                   str(source)]
             try:
                 out = subprocess.run(cmd, capture_output=True, text=True,
                                      timeout=300)
             except OSError as exc:
-                raise RuntimeError(f"the native data library cannot be "
-                                   f"built: {exc}") from exc
+                raise RuntimeError(f"{source.name} cannot be built: {exc}"
+                                   ) from exc
             log = (out.stdout + out.stderr).strip()
             if out.returncode != 0:
-                raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n"
+                raise RuntimeError(f"g++ failed to build {source.name}:\n"
                                    f"{log}")
             os.replace(tmp, target)
             built = True

@@ -27,8 +27,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import (LAUNCHES, PAIRS, SHARDED_NO_GRAD, SLICE,
-                       check_no_grad, cuda_device_index, row_plan)
+from .launches import (LAUNCHES, PAIRS, SLICE, check_no_grad,
+                       cuda_device_index, row_plan)
 
 GROUP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,6 +192,6 @@ def fused_cost_base(reference_fm: torch.Tensor, target_fm: torch.Tensor,
                                      x0, t0)
     if x0 or t0 or target_fm.shape != reference_fm.shape:
         check_no_grad("fused_cost_base with column offsets", reference_fm,
-                      target_fm, disp_sample, reason=SHARDED_NO_GRAD)
+                      target_fm, disp_sample)
         return _forward(reference_fm, target_fm, disp_sample, x0, t0)
     return _FusedCostBase.apply(reference_fm, target_fm, disp_sample)

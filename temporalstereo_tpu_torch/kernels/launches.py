@@ -22,7 +22,8 @@ SHIFT_BALANCE = 0.95          # grid / (SMS * ceil(grid / SMS)): how evenly
                               # the blocks spread over the SMs
 
 LAUNCHES = {"fused_cost_base": 0, "fused_cost_base_backward": 0,
-            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": 0}
+            "shift_1d": 0, "shift_1d_backward": 0, "softsplat": 0,
+            "softsplat_backward": 0}
 
 
 def reset_launches() -> None:
@@ -106,19 +107,13 @@ def shift_forward_plan(width_t: int, width: int, channels: int,
     return best[1]
 
 
-SPLAT_NO_GRAD = "the model stops the gradient at the temporal splat"
-SHARDED_NO_GRAD = "the W-sharded forward is inference only"
-
-
-def check_no_grad(name: str, *tensors, reason: str = SPLAT_NO_GRAD) -> None:
-    """For a kernel without a backward: the model never differentiates the
-    temporal splat (the JAX package stops the gradient right after it,
-    ``models/stereo.py:239``, and on the carried state it reads), nor the
-    W-sharded forward (inference only), so a gradient reaching either is a
-    fault in the caller."""
+def check_no_grad(name: str, *tensors) -> None:
+    """For a kernel launch without a backward: the W-sharded forward (the
+    column-offset launches) is inference only, so a gradient reaching it is
+    a fault in the caller."""
     if any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward: {reason}; detach its "
-                           "inputs")
+        raise RuntimeError(f"{name} has no backward: the W-sharded forward "
+                           "is inference only; detach its inputs")
 
 
 def cuda_device_index(name: str, *tensors, contiguous: bool = True) -> int:

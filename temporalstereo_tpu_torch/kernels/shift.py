@@ -25,9 +25,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .launches import (LAUNCHES, PAIRS, SHARDED_NO_GRAD, SLICE,
-                       check_no_grad, cuda_device_index, row_plan,
-                       shift_forward_plan)
+from .launches import (LAUNCHES, PAIRS, SLICE, check_no_grad,
+                       cuda_device_index, row_plan, shift_forward_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -166,8 +165,7 @@ def shift_1d(img: torch.Tensor, shift: torch.Tensor, x0: int = 0,
     if img.device.type == "cpu":
         return shift_1d_plain(img, shift, x0, t0)
     if x0 or t0 or img.shape[3] != shift.shape[3]:
-        check_no_grad("shift_1d with column offsets", img, shift,
-                      reason=SHARDED_NO_GRAD)
+        check_no_grad("shift_1d with column offsets", img, shift)
         return _forward(img, shift, x0, t0)
     if torch.is_grad_enabled() and (img.requires_grad or shift.requires_grad):
         return _Shift1d.apply(img, shift)

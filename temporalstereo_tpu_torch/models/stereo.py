@@ -197,9 +197,9 @@ def update_prev_info(prev: PrevInfo, K: torch.Tensor, baseline: torch.Tensor,
         splat_in += [updated[..., 1:1 + k], mv]
     if local_map_size > 0:
         splat_in.append(updated[..., 1 + k:])
-    # nothing that reaches the splat carries a gradient (JAX stereo.py:239)
+    # no gradient through the warped state (JAX stereo.py:239)
     warped = softsplat(torch.cat(splat_in, dim=-1), flow,
-                       _splat_metric(pd, mesh), mode="softmax")
+                       _splat_metric(pd, mesh), mode="softmax").detach()
 
     new_cost_memory = prev.cost_memory
     if use_past_cost:

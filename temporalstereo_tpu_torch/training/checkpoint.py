@@ -12,9 +12,12 @@ writes nothing for a step at or below the latest one it holds, and a
 Standalone weights (``save_weights``) are a ``.pth`` state_dict in the
 reference's names, which ``utils/checkpoint.py:load_weights`` (into a
 module) and ``load_any_weights`` (into a train state) read, as they read
-the JAX package's ``.msgpack`` weights (``utils/flax_msgpack.py``).  Warm
-starts merge as the JAX package's ``warm_start(strict=False)``: a tensor
-whose name and shape match is taken, every other one keeps its value.
+the JAX package's ``.msgpack`` weights (``utils/flax_msgpack.py``) and the
+weights in its orbax checkpoint directories (``utils/orbax.py``).  Resuming
+the port's trainer reads the port's own checkpoints only, as the JAX
+package resumes from its own.  Warm starts merge as the JAX package's
+``warm_start(strict=False)``: a tensor whose name and shape match is
+taken, every other one keeps its value.
 They act on the train state's f32 masters, so a bf16 model starts from
 the file's full-precision values.
 """
@@ -157,13 +160,12 @@ def warm_start(params: Tree, batch_stats: Tree, weights: Tree,
 def load_any_weights(params: Tree, batch_stats: Tree, path: str
                      ) -> Tuple[Tree, Tree, int]:
     """Warm-start from a torch checkpoint file, a JAX ``.msgpack`` weights
-    file or a ``CheckpointManager`` directory (its latest step) ->
-    (params, batch_stats, count)."""
-    if os.path.isdir(path):
-        mgr = CheckpointManager(path)
-        if mgr.latest_step() is None:
-            raise FileNotFoundError(f"no checkpoint steps in {path}")
-        saved = mgr.read()
+    file, a ``CheckpointManager`` directory of the port's or a JAX orbax
+    checkpoint directory (the latest step of either) -> (params,
+    batch_stats, count)."""
+    own = CheckpointManager(path) if os.path.isdir(path) else None
+    if own is not None and own.latest_step() is not None:
+        saved = own.read()
         weights = {**saved["params"], **saved.get("batch_stats", {})}
     else:
         weights = read_state_dict(path)

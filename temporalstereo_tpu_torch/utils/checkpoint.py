@@ -13,9 +13,10 @@ are ignored.  (A 0-d entry stored as shape [1], as the exporter writes
 BatchNorm's ``num_batches_tracked``, matches: ``load_state_dict`` takes it
 so.)  The JAX package's own ``.msgpack`` weights files
 (``training/checkpoint.py:save_weights``) are read without JAX by
-``utils/flax_msgpack.py`` and merge the same way; its orbax checkpoint
-directories are converted first with ``python -m
-temporalstereo_tpu.cli.export_reference``.
+``utils/flax_msgpack.py``, and the ``params`` and ``batch_stats`` of its
+orbax ``CheckpointManager`` directories (the latest step) without orbax,
+tensorstore or JAX by ``utils/orbax.py``; both merge the same way, as the
+JAX package's ``load_any_weights`` merges them.
 
 ``backbone_from_timm`` renames a timm EfficientNetV2 state_dict (ImageNet
 weights of the trunk) to the port's backbone names; the trainer merges it
@@ -23,6 +24,7 @@ the same way (``MODEL.BACKBONE.PRETRAINED``).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Sequence
 
 import torch
@@ -45,16 +47,26 @@ _TIMM_BLOCK_KEYS = {
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The tensors of a torch checkpoint file, or of the JAX package's
-    ``.msgpack`` weights by the port's names, on the CPU."""
+    ``.msgpack`` weights or orbax checkpoint directory (its latest step's
+    ``params`` and ``batch_stats``) by the port's names, on the CPU."""
     if path.endswith(MSGPACK_EXTENSION):
         from .flax_msgpack import read_state_dict as read_msgpack
 
         return read_msgpack(path)
+    if os.path.isdir(path):
+        from .flax_msgpack import tree_state_dict
+        from .orbax import is_orbax_directory, read_checkpoint
+
+        if not is_orbax_directory(path):
+            raise FileNotFoundError(f"{path}: no orbax checkpoint steps "
+                                    "(<step>/_CHECKPOINT_METADATA)")
+        return tree_state_dict(read_checkpoint(path))
     if not path.endswith(TORCH_EXTENSIONS):
         raise ValueError(
             f"{path}: the port loads {'/'.join(TORCH_EXTENSIONS)} "
-            f"checkpoints and {MSGPACK_EXTENSION} weights; convert other "
-            "weights with python -m temporalstereo_tpu.cli.export_reference")
+            f"checkpoints, {MSGPACK_EXTENSION} weights and orbax checkpoint "
+            "directories; convert other weights with python -m "
+            "temporalstereo_tpu.cli.export_reference")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]

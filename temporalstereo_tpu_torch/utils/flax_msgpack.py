@@ -186,10 +186,16 @@ def backbone_groups(backbone: Dict[str, Any]):
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A JAX ``save_weights`` file -> the port's state_dict of the tensors
     it holds (CPU, f32; BatchNorm counters 0)."""
+    with open(path, "rb") as fp:
+        return tree_state_dict(restore(fp.read()))
+
+
+def tree_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX variables {"params", "batch_stats"} of a weights file or a
+    checkpoint (numpy leaves) -> the port's state_dict of the tensors they
+    hold (CPU, f32; BatchNorm counters 0)."""
     from .convert import state_dict_from_jax
 
-    with open(path, "rb") as fp:
-        tree = restore(fp.read())
     params = tree.get("params", {})
     stats = tree.get("batch_stats", {})
     return state_dict_from_jax(

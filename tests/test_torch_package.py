@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port (temporalstereo_tpu_torch): it imports
-neither JAX, flax nor the JAX package, and opens nothing of the JAX
-package's ``native/`` directory (its C++ lives in the package); its entry
-points refuse to fall back to the CPU; chip_smoke.py gives no result
-without a card."""
+neither JAX, flax, orbax, tensorstore, zstandard nor the JAX package, and
+opens nothing of the JAX package's ``native/`` directory (its C++ lives in
+the package); its entry points refuse to fall back to the CPU;
+chip_smoke.py gives no result without a card."""
 import ast
 import os
 import pathlib
@@ -17,7 +17,8 @@ from temporalstereo_tpu_torch.models import build_model
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "temporalstereo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "temporalstereo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "temporalstereo_tpu", "orbax",
+             "tensorstore", "zstandard")
 
 
 def _imports(path):
