@@ -21,13 +21,16 @@ non-zero exit code and no result line:
      against torch autograd of the plain version, run twice to show it
      deterministic), the backwards on uniform hypotheses and on model-like
      ones (a smooth disparity field and the cascade's offsets around it);
-     the splat's gradient: the backward kernel against its plain gather,
-     and the whole softsplat's backward (autograd through the kernel)
+     the splat's gradient: the forward's kept normaliser against its
+     plain version (the output bit-equal with and without it), the
+     backward kernel (the whole vjp, one launch) against its plain
+     version, and the whole softsplat's backward (autograd through the
+     kernel; torch.profiler finds the backward kernel alone on the card)
      against autograd of the plain version, in all four modes, at the
      splat's two shapes and three flows, each twice and bit-identical,
      as accurate against the plain version in f64 as the plain f32 one
      (SPLAT_BWD_TOL); then ops.softsplat differentiated from zeroed
-     counts (one forward, one normaliser, one backward launch);
+     counts (one forward and one backward launch);
   4. the tiny model on the card (kernels) against the same model on the
      CPU (plain versions), f32, TF32 off: three streamed frames, then one
      training step (T=3) with BLOCK_COST_SCALE 3 and 0 (its losses and
@@ -295,6 +298,20 @@ def _device_events(fn, iters):
         torch.cuda.synchronize()
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def full_device_events(fn, iters=20, tries=5):
+    """``_device_events`` of ``iters`` calls: the trace with the most events
+    of up to ``tries`` (the profiler now and then drops records; a trace of
+    ``iters`` events or more ends the tries)."""
+    best = []
+    for _ in range(tries):
+        events = _device_events(fn, iters)
+        if len(events) > len(best):
+            best = events
+        if len(best) >= iters:
+            break
+    return best
 
 
 def device_ms(fn, kernel, iters=20):
@@ -778,7 +795,11 @@ def phase_splat(torch, kernels, detail):
     plain version in softmax mode (7 channels + the weight, as the model
     calls it) and summation mode (the TPU kernel's own function, 8
     channels), at the stream's and the training step's shapes, on three
-    flows; each row twice, the two bit-identical."""
+    flows; each row twice, the two bit-identical.  A softmax row also times
+    the launch that keeps the normaliser (as a forward under autograd
+    does)."""
+    from temporalstereo_tpu_torch.kernels.splat import _launch
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     detail["softsplat"] = []
@@ -814,8 +835,18 @@ def phase_splat(torch, kernels, detail):
                 row["device_events_per_call"] = events
                 row["main"] = (path, mode, case) == ("stream", "softmax",
                                                      "rigid")
+                if mode != "summation":
+                    def kept(x=inputs, f=flow, m=metric, mode=mode):
+                        return _launch(x, f, m, mode, 1e-22, keep_norm=True)
+                    row["keep_norm_ms"] = cuda_ms(kept)
+                    row["keep_norm_device_ms"] = device_ms(kept,
+                                                           SPLAT_KERNEL)
                 detail["softsplat"].append(row)
                 _log_row("softsplat", row, SPLAT_TOL)
+                if mode != "summation":
+                    log(3, f"  keeping the normaliser: kernel "
+                        f"{row['keep_norm_ms']:.4f} ms, device "
+                        f"{fmt_ms(row['keep_norm_device_ms'])}")
                 if not ok:
                     raise AssertionError(f"softsplat {path} {mode} {case} "
                                          "disagrees with its plain version")
@@ -830,8 +861,8 @@ def phase_splat(torch, kernels, detail):
 # the plain version's own f32 gradient is, plus 1e-6 of the largest f64
 # value.  The f32 flow gradient cancels terms (the taps' weights change in
 # opposite directions), so f32 alone sits far from f64 in some rows; the
-# kernel forms every product as the plain version does and only the sums
-# over channels run in another order
+# kernel forms every product and quotient as the plain version does and
+# only the sums over channels run in another order
 SPLAT_BWD_TOL = (2.0, 1e-6)
 
 
@@ -873,17 +904,25 @@ def _as_accurate(kernel, plain, ref, floor):
     return worst, rel, ok
 
 
+def _f64(t):
+    return None if t is None else t.double()
+
+
 def phase_splat_backward(torch, kernels, detail):
-    """Phase 3, the splat's gradient: the backward kernel
-    (csrc/softsplat_backward.cu) against summation_splat_vjp_plain on the
-    values each mode splats, and the whole softsplat's backward (autograd
-    through kernels.softsplat: one forward launch for the normaliser, one
-    backward launch) against autograd of softsplat_plain, in all four
-    modes, at the stream's and the training step's shapes, on the forward
-    phase's three flows; each twice, the two bit-identical.  Then
-    ops.softsplat differentiated once at the training shape from zeroed
-    counts -> those launches."""
-    from temporalstereo_tpu_torch.kernels.splat import _weighted
+    """Phase 3, the splat's gradient, in all four modes, at the stream's and
+    the training step's shapes, on the forward phase's three flows:
+      the forward kernel's kept normaliser against its plain version, its
+        output bit-equal with and without it;
+      the backward kernel (csrc/softsplat_backward.cu, the whole vjp in one
+        launch) against softsplat_vjp_plain on the same output and
+        normaliser (the plain forward's);
+      the whole softsplat's backward through autograd (kernels.softsplat)
+        against autograd of softsplat_plain, its device events counted by
+        torch.profiler: exactly one, the backward kernel;
+    both as accurate against the f64 plain version as the f32 plain one,
+    each twice, the two bit-identical.  Then ops.softsplat differentiated
+    once at the training shape from zeroed counts -> those launches."""
+    from temporalstereo_tpu_torch.kernels.splat import _launch
     from temporalstereo_tpu_torch.ops import softsplat as ops_softsplat
 
     dev = torch.device("cuda")
@@ -895,21 +934,41 @@ def phase_splat_backward(torch, kernels, detail):
             for mode in ("summation", "average", "linear", "softmax"):
                 leaves = _splat_grad_leaves(torch, mode, *base)
                 x, flow, metric = leaves
-                vals = _weighted(x, metric, mode)
-                c = vals.shape[-1]
-                g_vals = torch.randn(vals.shape, generator=g, device=dev)
+                c = x.shape[-1]
+                weighted = mode != "summation"
                 g_out = torch.randn(x.shape, generator=g, device=dev)
+                out_p, norm_p = kernels.softsplat_plain(x, flow, metric, mode,
+                                                        keep_norm=True)
+                norm_err = None
+                if weighted:
+                    out_k, norm_k = _launch(x, flow, metric, mode, 1e-22,
+                                            keep_norm=True)
+                    same_out = torch.equal(
+                        out_k, _launch(x, flow, metric, mode, 1e-22))
+                    norm_err, norm_ok = close(norm_k, norm_p, *SPLAT_TOL)
+                    if not (norm_ok and same_out):
+                        raise AssertionError(
+                            f"softsplat {path} {mode} {case}: the kept "
+                            f"normaliser is {norm_err:.3g} from its plain "
+                            f"version, the output with it bit-equal "
+                            f"{same_out}")
 
-                def bare(v=vals, f=flow, gv=g_vals):
-                    return kernels.summation_splat_vjp(v, f, gv)
+                def bare(x=x, f=flow, m=metric, o=out_p, gv=g_out, mode=mode,
+                         n=norm_p):
+                    return [t for t in kernels.softsplat_vjp(
+                        x, f, m, o, gv, mode, norm=n) if t is not None]
                 first, second = bare(), bare()
-                plain = kernels.summation_splat_vjp_plain(vals, flow, g_vals)
-                ref = kernels.summation_splat_vjp_plain(
-                    vals.double(), flow.double(), g_vals.double())
+                plain = [t for t in kernels.softsplat_vjp_plain(
+                    x, flow, metric, out_p, g_out, mode, norm=norm_p)
+                    if t is not None]
+                out_r = _softsplat_f64(_f64(x), _f64(flow), _f64(metric),
+                                       mode)
+                ref = [t for t in kernels.softsplat_vjp_plain(
+                    _f64(x), _f64(flow), _f64(metric), out_r,
+                    g_out.double(), mode) if t is not None]
                 torch.cuda.synchronize()
                 err, rel, ok = _as_accurate(first, plain, ref,
                                             SPLAT_BWD_TOL[1])
-                same_values = torch.equal(first[0], plain[0])
                 spread = _spread(first, second)
                 same = all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
@@ -932,32 +991,47 @@ def phase_splat_backward(torch, kernels, detail):
                     grads_k, grads_p, grads_r, SPLAT_BWD_TOL[1])
                 same_vjp = all(torch.equal(a, b_)
                                for a, b_ in zip(grads_k, again))
+                # every device event of 20 backwards through autograd
+                events = full_device_events(backward_k, 20)
+                names = sorted({e.name for e in events})
+                one_launch = (len(events) == 20 and len(names) == 1
+                              and "softsplat_backward" in names[0])
+                dev_ms = (sum(e.time_range.elapsed_us() for e in events)
+                          / 20 / 1e3 if one_launch else None)
 
                 ms, lo, hi = cuda_ms_spread(bare)
-                nbytes = b * h * w * (12 * c + 16)
-                row = _row(path, [b, h, w, c], "float32", err, ms,
-                           cuda_ms(lambda: kernels.summation_splat_vjp_plain(
-                               vals, flow, g_vals), 10),
-                           None, nbytes, spread,
-                           device_ms(bare, "softsplat_backward"),
-                           f"{mode} {case}", (lo, hi))
+                nbytes = b * h * w * 4 * (
+                    2 * c + 2 + (metric is not None)                # in, g
+                    + (c + 1 if weighted else 0)                    # out, n
+                    + c + 2 + (metric is not None))                 # grads
+                row = _row(path, [b, h, w, c + weighted], "float32", err, ms,
+                           cuda_ms(lambda: kernels.softsplat_vjp_plain(
+                               x, flow, metric, out_p, g_out, mode,
+                               norm=norm_p), 10),
+                           None, nbytes, spread, dev_ms, f"{mode} {case}",
+                           (lo, hi))
                 row.update(max_rel_err=rel, softsplat_vjp_max_abs_err=err_vjp,
                            softsplat_vjp_max_rel_err=rel_vjp,
                            softsplat_vjp_ms=cuda_ms(backward_k, 20),
                            softsplat_vjp_plain_ms=cuda_ms(backward_p, 10),
+                           device_events_per_backward=len(events) / 20,
+                           norm_max_abs_err=norm_err,
                            main=(path, mode, case) == ("train", "softmax",
                                                        "rigid"))
                 detail["softsplat_backward"].append(row)
                 _log_row("softsplat_backward", row,
                          f"|k - f64| <= {SPLAT_BWD_TOL[0]:g}*|plain - f64| "
                          f"+ {SPLAT_BWD_TOL[1]:g}*max|f64|")
-                log(3, f"  max|d| / max|plain| {rel:.3g}; softsplat {mode} "
-                    f"backward through autograd (forward + normaliser + "
-                    f"backward kernel + torch): max|d| {err_vjp:.3g} "
+                norm_text = ("none" if norm_err is None
+                             else f"{norm_err:.3g}")
+                log(3, f"  max|d| / max|plain| {rel:.3g}; kept normaliser "
+                    f"max|d| {norm_text}; "
+                    f"backward through autograd: max|d| {err_vjp:.3g} "
                     f"({rel_vjp:.3g} of max|plain|) against autograd of the "
-                    f"plain version, {row['softsplat_vjp_ms']:.4f} ms (plain "
-                    f"{row['softsplat_vjp_plain_ms']:.4f} ms); g_values "
-                    f"bit-equal to the plain gather {same_values}")
+                    f"plain version, wall {row['softsplat_vjp_ms']:.4f} ms "
+                    f"a call (CUDA events around 20; plain "
+                    f"{row['softsplat_vjp_plain_ms']:.4f} ms), device "
+                    f"events a backward {len(events) / 20:g} {names}")
                 if not (ok and ok_vjp):
                     raise AssertionError(
                         f"softsplat_backward {path} {mode} {case} is less "
@@ -967,6 +1041,12 @@ def phase_splat_backward(torch, kernels, detail):
                     raise AssertionError(
                         f"softsplat_backward {path} {mode} {case}: two runs "
                         "differ")
+                if not one_launch:
+                    raise AssertionError(
+                        f"softsplat {path} {mode} {case}: a backward through "
+                        f"autograd put {len(events) / 20:g} device events a "
+                        f"call on the card ({names}), want the backward "
+                        "kernel alone")
 
     b, h, w = dict(SPLAT_SHAPES)["train"]
     leaves = [t.detach().requires_grad_() for t in splat_inputs(
@@ -978,7 +1058,7 @@ def phase_splat_backward(torch, kernels, detail):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     want = {name: 0 for name in launches}
-    want.update(softsplat=2, softsplat_backward=1)
+    want.update(softsplat=1, softsplat_backward=1)
     log(3, f"ops.softsplat softmax differentiated at {[b, h, w]}: launches "
         f"{launches}; gradients finite "
         f"{all(bool(torch.isfinite(t.grad).all()) for t in leaves)}")
@@ -4142,8 +4222,8 @@ KERNEL_SOURCES = {
                   "rigid flow)"),
     "softsplat_backward": (
         "softsplat_backward.cu", "temporalstereo_tpu/ops/pallas/splat.py:104",
-        "the splat's vjp at the training step's temporal update (softmax, "
-        "rigid flow): the backward kernel alone"),
+        "the splat's whole vjp at the training step's temporal update "
+        "(softmax, rigid flow), one launch"),
 }
 
 

@@ -14,8 +14,12 @@ shapes of the flagship stream and of the training step
 (CUDA events, median of 5 batches of 50 calls), the device time summed
 over everything one call puts on the card and the number of those device
 events (torch.profiler), and the largest difference between 5 calls on
-the same inputs.  The first outputs of this checkout are held against the
-other checkout's (the largest difference is printed).
+the same inputs; then the same for the whole backward through autograd
+(``torch.autograd.grad`` of that softsplat in inputs, flow and metric,
+CUDA events around batches of 20 calls).  The first outputs and gradients
+of this checkout are held against the other checkout's (the largest
+difference is printed, the gradients' as a share of their largest
+value).
 Prints the card's name and power limit, one JSON line per worker and a
 summary JSON line; with --json PATH also writes all of it to PATH.  The
 outputs pass through kernels/_build/splat_compare/, removed at the end.
@@ -70,6 +74,28 @@ def worker(root, out_path):
                          "device_events_per_call": events,
                          "run_to_run": spread})
             outputs[f"{path} {case}"] = runs[0].cpu()
+
+            leaves = [t.detach().requires_grad_()
+                      for t in (inputs, flow, metric)]
+            out = softsplat(*leaves, "softmax")
+            g_out = torch.randn(out.shape, generator=g, device=dev)
+
+            def backward():
+                return torch.autograd.grad(out, leaves, g_out,
+                                           retain_graph=True)
+            grads = [backward() for _ in range(2)]
+            torch.cuda.synchronize()
+            ms, lo, hi = cs.cuda_ms_spread(backward, 20)
+            events = cs.full_device_events(backward, 20)
+            rows[-1].update(
+                backward_ms=ms, backward_ms_min_max=[lo, hi],
+                backward_device_ms=sum(e.time_range.elapsed_us()
+                                       for e in events) / 20 / 1e3,
+                backward_device_events_per_call=len(events) / 20,
+                backward_run_to_run=max(float((a - b_).abs().max())
+                                        for a, b_ in zip(*grads)))
+            for name, t in zip(("g_inputs", "g_flow", "g_metric"), grads[0]):
+                outputs[f"{path} {case} {name}"] = t.cpu()
     torch.save(outputs, out_path)
     print(json.dumps({"root": str(root), "rows": rows}), flush=True)
 
@@ -111,8 +137,10 @@ def main():
 
     first = torch.load(files[0])
     mine = torch.load(files[1])
-    diff = {k: float((first[k] - mine[k]).abs().max()) for k in first}
-    summary = {"card": card, "max_abs_diff_between_trees": diff}
+    diff = {k: float((first[k] - mine[k]).abs().max())
+            / (float(first[k].abs().max()) if " g_" in k else 1.0)
+            for k in first}
+    summary = {"card": card, "max_diff_between_trees": diff}
     print(json.dumps(summary), flush=True)
     shutil.rmtree(tmp)
     if args.json:

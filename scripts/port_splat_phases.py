@@ -74,7 +74,7 @@ def main():
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                     "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).softsplat
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_longlong] * 11
                    + [ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -91,7 +91,8 @@ def main():
             ts = torch.zeros((blocks, 6), dtype=torch.int64, device=dev)
             for _ in range(3):
                 err = fn(x.data_ptr(), f.data_ptr(), m.data_ptr(),
-                         out.data_ptr(), b, h, w, x.shape[-1], 3, 1e-22,
+                         out.data_ptr(), None, b, h, w, x.shape[-1], 3,
+                         1e-22,
                          *x.stride(), *f.stride(), *m.stride()[:3],
                          ts.data_ptr(), tile, dev.index or 0,
                          torch.cuda.current_stream().cuda_stream)

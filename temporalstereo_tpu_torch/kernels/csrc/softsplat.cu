@@ -15,7 +15,11 @@
 // bounds-checked on its own, in f32, before its coordinate becomes an
 // index, so a NaN or huge flow drops the tap instead of wrapping.  The
 // output is written once; nothing is zeroed before the launch and the
-// kernel needs no scratch in device memory.
+// kernel needs no scratch in device memory.  Where the caller asks for it
+// (a gradient will be taken; not in summation mode), the kernel also
+// stores the normaliser norm [B,H,W,1], each target's summed weight before
+// + eps, which csrc/softsplat_backward.cu reads; without it the kernel
+// writes exactly what it writes otherwise.
 //
 // What bounds it on an H100: latency and instruction issue.  At the
 // temporal update's shape (48x156, 7 channels + the weight) it moves
@@ -78,6 +82,7 @@ struct Args {
   const float* flow;
   const float* metric;
   float* out;
+  float* norm;                          // null: not kept
   int H, W, C, mode, tile;
   float eps;
   long long in_s[4], fl_s[4], me_s[3];  // element strides: b, h, w (, c)
@@ -203,6 +208,8 @@ __device__ void big_target(const Args& a, int b, int t, float* part) {
     }
     if (tid < CHUNK && c0 + tid < a.C)
       store(a, b, t, c0 + tid, part[tid], part[CHUNK]);
+    if (a.norm && tid == 0 && c0 == 0)
+      a.norm[(long long)b * HW + t] = part[CHUNK];
     __syncthreads();
   }
 }
@@ -288,6 +295,7 @@ __global__ void __launch_bounds__(THREADS) softsplat_kernel(Args a) {
         wsum = __fadd_rn(wsum, row[k * MAX_TILE * ROW + CHUNK]);
       }
       store(a, b, t0 + i, c0 + j, sum, wsum);
+      if (a.norm && c0 + j == 0) a.norm[(long long)b * HW + t0 + i] = wsum;
     }
     __syncthreads();
   }
@@ -300,18 +308,19 @@ __global__ void __launch_bounds__(THREADS) softsplat_kernel(Args a) {
 
 // inputs [B,H,W,C], flow [B,H,W,2], metric [B,H,W,1] (null in summation and
 // average modes), all float32 with the element strides given (b, h, w, c);
-// out [B,H,W,C] float32, contiguous.  mode: 0 summation, 1 average,
+// out [B,H,W,C] float32, contiguous; norm [B,H,W,1] float32, contiguous, or
+// null (not written in summation mode).  mode: 0 summation, 1 average,
 // 2 linear, 3 softmax.  tile (<= 128 targets per block) comes from
 // kernels/splat.py:splat_plan.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int softsplat(const void* inputs, const void* flow,
-                         const void* metric, void* out, int B, int H, int W,
-                         int C, int mode, float eps, long long in_sb,
-                         long long in_sh, long long in_sw, long long in_sc,
-                         long long fl_sb, long long fl_sh, long long fl_sw,
-                         long long fl_sc, long long me_sb, long long me_sh,
-                         long long me_sw, int tile, int device,
-                         void* stream) {
+                         const void* metric, void* out, void* norm, int B,
+                         int H, int W, int C, int mode, float eps,
+                         long long in_sb, long long in_sh, long long in_sw,
+                         long long in_sc, long long fl_sb, long long fl_sh,
+                         long long fl_sw, long long fl_sc, long long me_sb,
+                         long long me_sh, long long me_sw, int tile,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || W == 0 || C == 0) return 0;
@@ -333,6 +342,7 @@ extern "C" int softsplat(const void* inputs, const void* flow,
   a.flow = (const float*)flow;
   a.metric = (const float*)metric;
   a.out = (float*)out;
+  a.norm = mode == SUMMATION ? nullptr : (float*)norm;
   a.H = H;
   a.W = W;
   a.C = C;

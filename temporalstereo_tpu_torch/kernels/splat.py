@@ -14,13 +14,11 @@ order: its output is bit-identical from run to run.
 
 On CUDA tensors that need a gradient, ``softsplat`` is an autograd
 function, differentiable in inputs, flow and metric as the JAX package's
-is (its ``ops/pallas/splat.py:104`` vjp).  The backward recomputes the
-weighted values, gets the normaliser by one summation-mode launch of the
-forward kernel over the weight channel (so the forward stays one launch
-that writes nothing more), and makes one launch of the gather kernel
-``csrc/softsplat_backward.cu`` over all C + 1 channels; the chain to
-inputs and metric is torch.  ``summation_splat_vjp_plain`` is the gather
-formula that kernel computes.
+is (its ``ops/pallas/splat.py:104`` vjp).  Its forward launch also keeps
+the normaliser (each target's summed weight before + eps), and its
+backward is one launch of ``csrc/softsplat_backward.cu``: the whole vjp,
+per source from its four taps.  ``softsplat_vjp_plain`` is that formula
+in plain PyTorch, ``summation_splat_vjp_plain`` its summation mode's case.
 """
 from __future__ import annotations
 
@@ -34,11 +32,12 @@ MODES = ("summation", "average", "linear", "softmax")
 MAX_TILE = 128               # targets per block (csrc/softsplat.cu)
 _FNS = {}
 # the C entry points' parameters, in order
-ARGTYPES = {"softsplat": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+ARGTYPES = {"softsplat": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                           + [ctypes.c_float] + [ctypes.c_longlong] * 11
                           + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
-            "softsplat_backward": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                   + [ctypes.c_longlong] * 12
+            "softsplat_backward": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                                   + [ctypes.c_float]
+                                   + [ctypes.c_longlong] * 22
                                    + [ctypes.c_int, ctypes.c_void_p])}
 
 
@@ -135,14 +134,17 @@ def _weighted(inputs, metric, mode):
 
 def softsplat_plain(inputs: torch.Tensor, flow: torch.Tensor,
                     metric: torch.Tensor | None, mode: str = "softmax",
-                    eps: float = 1e-22) -> torch.Tensor:
+                    eps: float = 1e-22, keep_norm: bool = False):
     """The same function in plain PyTorch: the JAX package's mode weighting
-    and normalisation around the scatter splat."""
+    and normalisation around the scatter splat.  ``keep_norm`` returns
+    (output, normaliser [B,H,W,1] or None in summation mode), as the
+    kernel's forward keeps it for the backward."""
     _check(inputs, flow, metric, mode)
     out = _summation_plain(_weighted(inputs, metric, mode), flow)
-    if mode == "summation":
-        return out
-    return out[..., :-1] / (out[..., -1:] + eps)
+    norm = None if mode == "summation" else out[..., -1:]
+    if norm is not None:
+        out = out[..., :-1] / (norm + eps)
+    return (out, norm) if keep_norm else out
 
 
 def summation_splat_vjp_plain(values: torch.Tensor, flow: torch.Tensor,
@@ -167,81 +169,30 @@ def summation_splat_vjp_plain(values: torch.Tensor, flow: torch.Tensor,
     return g_values, torch.stack([gx, gy], dim=-1)
 
 
-def summation_splat_vjp(values: torch.Tensor, flow: torch.Tensor,
-                        g: torch.Tensor):
-    """``summation_splat_vjp_plain``'s function: one launch of
-    ``csrc/softsplat_backward.cu`` on CUDA tensors (f32, any strides), the
-    plain version on CPU tensors."""
-    if values.device.type == "cpu":
-        return summation_splat_vjp_plain(values, flow, g)
-    b, h, w, c = values.shape
-    if (flow.shape != (b, h, w, 2) or g.shape != values.shape
-            or any(t.dtype != torch.float32 for t in (values, flow, g))):
-        raise ValueError(f"softsplat_backward: values {tuple(values.shape)}, "
-                         f"flow {tuple(flow.shape)}, g {tuple(g.shape)}, "
-                         "all float32, [B,H,W,C], [B,H,W,2], [B,H,W,C]")
-    device = cuda_device_index("softsplat_backward", values, flow, g,
-                               contiguous=False)
-    g_values = torch.empty((b, h, w, c), dtype=torch.float32,
-                           device=values.device)
-    g_flow = torch.empty((b, h, w, 2), dtype=torch.float32,
-                         device=values.device)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = _kernel("softsplat_backward")(
-        values.data_ptr(), flow.data_ptr(), g.data_ptr(), g_values.data_ptr(),
-        g_flow.data_ptr(), b, h, w, c, *values.stride(), *flow.stride(),
-        *g.stride(), device, stream)
-    if err:
-        raise RuntimeError("softsplat_backward: launch failed, CUDA error "
-                           f"{err}")
-    LAUNCHES["softsplat_backward"] += 1
-    return g_values, g_flow
-
-
-def _launch(inputs, flow, metric, mode, eps):
-    """One launch of the forward kernel."""
-    has_metric = mode in ("linear", "softmax")
-    tensors = [inputs, flow] + ([metric] if has_metric else [])
-    device = cuda_device_index("softsplat", *tensors, contiguous=False)
-    b, h, w, c = inputs.shape
-    tile = splat_plan(b, h, w, torch.cuda.get_device_properties(
-        device).multi_processor_count)
-    out = torch.empty((b, h, w, c), dtype=torch.float32, device=inputs.device)
-    m_strides = metric.stride()[:3] if has_metric else (0, 0, 0)
-    stream = torch.cuda.current_stream(inputs.device).cuda_stream
-    err = _kernel()(inputs.data_ptr(), flow.data_ptr(),
-                    metric.data_ptr() if has_metric else None,
-                    out.data_ptr(), b, h, w, c, MODES.index(mode), eps,
-                    *inputs.stride(), *flow.stride(), *m_strides, tile,
-                    device, stream)
-    if err:
-        raise RuntimeError(f"softsplat: launch failed, CUDA error {err}")
-    LAUNCHES["softsplat"] += 1
-    return out
-
-
-def softsplat_vjp(inputs: torch.Tensor, flow: torch.Tensor,
-                  metric: torch.Tensor | None, out: torch.Tensor,
-                  g: torch.Tensor, mode: str = "softmax", eps: float = 1e-22):
+def softsplat_vjp_plain(inputs: torch.Tensor, flow: torch.Tensor,
+                        metric: torch.Tensor | None, out: torch.Tensor | None,
+                        g: torch.Tensor, mode: str = "softmax",
+                        eps: float = 1e-22, norm: torch.Tensor | None = None):
     """The vjp of ``softsplat`` at its output ``out`` for the output's
-    gradient g -> (g_inputs, g_flow, g_metric or None).  Recomputes the
-    weighted values, splats the weight channel for the normaliser n and
-    takes the summation splat's vjp of g_S = [g / (n + eps), -sum_c g_c
-    out_c / (n + eps)] over all C + 1 channels in one call: on CUDA tensors
-    one launch of the forward kernel and one of the backward kernel, on CPU
-    tensors their plain versions.  The flow's gradient comes from that call
-    alone: the mode's weights depend on the metric only."""
+    gradient g -> (g_inputs, g_flow, g_metric or None), as
+    ``csrc/softsplat_backward.cu`` computes it, in plain PyTorch (any
+    float dtype).  With n = norm + eps at each target (norm the summed
+    weight, splatted here by ``_summation_plain`` unless given) and the
+    output's gradient over the C + 1 splatted channels gs = [g / n,
+    -(sum_c g_c out_c) / n], each source gathers G = sum_k w_k gs(t_k) and
+    its flow's gradient from its four taps (``summation_splat_vjp_plain``
+    on the values the forward splatted); then g_inputs = G_c m and
+    g_metric = sum_c G_c inputs_c + G_w, times m in softmax mode.  In
+    summation mode gs = g and there is no weight."""
     vals = _weighted(inputs, metric, mode)
     if mode == "summation":
-        return (*summation_splat_vjp(vals, flow, g), None)
+        return (*summation_splat_vjp_plain(vals, flow, g), None)
     weight = vals[..., -1:]
-    if weight.device.type == "cpu":
-        denom = _summation_plain(weight, flow) + eps
-    else:
-        denom = _launch(weight, flow, None, "summation", eps) + eps
-    g_s = torch.cat([g / denom, -(g * out).sum(-1, keepdim=True) / denom],
-                    dim=-1)
-    g_vals, g_flow = summation_splat_vjp(vals, flow, g_s)
+    if norm is None:
+        norm = _summation_plain(weight, flow)
+    n = norm + eps
+    gs = torch.cat([g / n, -(g * out).sum(-1, keepdim=True) / n], dim=-1)
+    g_vals, g_flow = summation_splat_vjp_plain(vals, flow, gs)
     g_in, g_w = g_vals[..., :-1], g_vals[..., -1:]
     if mode == "average":
         return g_in, g_flow, None
@@ -251,21 +202,98 @@ def softsplat_vjp(inputs: torch.Tensor, flow: torch.Tensor,
     return g_in * weight, g_flow, g_metric
 
 
+def softsplat_vjp(inputs: torch.Tensor, flow: torch.Tensor,
+                  metric: torch.Tensor | None, out: torch.Tensor | None,
+                  g: torch.Tensor, mode: str = "softmax", eps: float = 1e-22,
+                  norm: torch.Tensor | None = None):
+    """``softsplat_vjp_plain``'s function: on CUDA tensors (f32, any
+    strides) one launch of ``csrc/softsplat_backward.cu``, which takes the
+    normaliser ``norm`` [B,H,W,1] the forward kept (out and norm None in
+    summation mode); on CPU tensors the plain version."""
+    if inputs.device.type == "cpu":
+        return softsplat_vjp_plain(inputs, flow, metric, out, g, mode, eps,
+                                   norm)
+    tensors = _check(inputs, flow, metric, mode)
+    b, h, w, c = inputs.shape
+    kept = [] if mode == "summation" else [out, norm]
+    if (any(t is None for t in kept) or g.shape != inputs.shape
+            or (kept and (out.shape != inputs.shape
+                          or norm.shape != (b, h, w, 1)))
+            or any(t.dtype != torch.float32 for t in [g, *kept])):
+        raise ValueError(f"softsplat_backward: g {tuple(g.shape)}, out and "
+                         f"norm of inputs {tuple(inputs.shape)} in {mode} "
+                         "mode: float32 [B,H,W,C], [B,H,W,C], [B,H,W,1] "
+                         "(out and norm None in summation mode)")
+    device = cuda_device_index("softsplat_backward", *tensors, g, *kept,
+                               contiguous=False)
+    has_metric = len(tensors) == 3
+
+    def new(channels):
+        return torch.empty((b, h, w, channels), dtype=torch.float32,
+                           device=inputs.device)
+    g_inputs, g_flow = new(c), new(2)
+    g_metric = new(1) if has_metric else None
+    m_strides = metric.stride()[:3] if has_metric else (0, 0, 0)
+    o_strides = out.stride() if kept else (0, 0, 0, 0)
+    n_strides = norm.stride()[:3] if kept else (0, 0, 0)
+    stream = torch.cuda.current_stream(inputs.device).cuda_stream
+    err = _kernel("softsplat_backward")(
+        inputs.data_ptr(), flow.data_ptr(),
+        metric.data_ptr() if has_metric else None,
+        out.data_ptr() if kept else None, norm.data_ptr() if kept else None,
+        g.data_ptr(), g_inputs.data_ptr(), g_flow.data_ptr(),
+        g_metric.data_ptr() if has_metric else None, b, h, w, c,
+        MODES.index(mode), eps, *inputs.stride(), *flow.stride(), *m_strides,
+        *o_strides, *n_strides, *g.stride(), device, stream)
+    if err:
+        raise RuntimeError("softsplat_backward: launch failed, CUDA error "
+                           f"{err}")
+    LAUNCHES["softsplat_backward"] += 1
+    return g_inputs, g_flow, g_metric
+
+
+def _launch(inputs, flow, metric, mode, eps, keep_norm=False):
+    """One launch of the forward kernel -> its output, or with
+    ``keep_norm`` (output, normaliser [B,H,W,1] or None in summation
+    mode)."""
+    has_metric = mode in ("linear", "softmax")
+    tensors = [inputs, flow] + ([metric] if has_metric else [])
+    device = cuda_device_index("softsplat", *tensors, contiguous=False)
+    b, h, w, c = inputs.shape
+    tile = splat_plan(b, h, w, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    out = torch.empty((b, h, w, c), dtype=torch.float32, device=inputs.device)
+    norm = (torch.empty((b, h, w, 1), dtype=torch.float32,
+                        device=inputs.device)
+            if keep_norm and mode != "summation" else None)
+    m_strides = metric.stride()[:3] if has_metric else (0, 0, 0)
+    stream = torch.cuda.current_stream(inputs.device).cuda_stream
+    err = _kernel()(inputs.data_ptr(), flow.data_ptr(),
+                    metric.data_ptr() if has_metric else None,
+                    out.data_ptr(), None if norm is None else norm.data_ptr(),
+                    b, h, w, c, MODES.index(mode), eps, *inputs.stride(),
+                    *flow.stride(), *m_strides, tile, device, stream)
+    if err:
+        raise RuntimeError(f"softsplat: launch failed, CUDA error {err}")
+    LAUNCHES["softsplat"] += 1
+    return (out, norm) if keep_norm else out
+
+
 class _Softsplat(torch.autograd.Function):
-    """The kernel's softsplat, its vjp on the card."""
+    """The kernel's softsplat, its vjp one launch on the card."""
 
     @staticmethod
     def forward(ctx, inputs, flow, metric, mode, eps):
-        out = _launch(inputs, flow, metric, mode, eps)
+        out, norm = _launch(inputs, flow, metric, mode, eps, keep_norm=True)
         ctx.mode, ctx.eps = mode, eps
-        ctx.save_for_backward(inputs, flow, metric, out)
+        ctx.save_for_backward(inputs, flow, metric, out, norm)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        inputs, flow, metric, out = ctx.saved_tensors
+        inputs, flow, metric, out, norm = ctx.saved_tensors
         return (*softsplat_vjp(inputs, flow, metric, out, g, ctx.mode,
-                               ctx.eps), None, None)
+                               ctx.eps, norm), None, None)
 
 
 def softsplat(inputs: torch.Tensor, flow: torch.Tensor,

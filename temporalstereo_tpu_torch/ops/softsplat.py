@@ -5,9 +5,8 @@ four modes) and ``summation_splat`` (the bare splat) run in one launch of
 the CUDA kernel on CUDA tensors and as the plain scatter on CPU tensors
 (``kernels/splat.py``).  Both are differentiable in every tensor input
 (inputs, flow and metric), as the JAX package's are: on the card the
-backward is one launch of ``csrc/softsplat_backward.cu`` (and, but in
-summation mode, one of the forward kernel for the normaliser), on the CPU
-autograd of the plain version.  The JAX package's blocked one-hot einsum
+forward keeps its normaliser and the backward is one launch of
+``csrc/softsplat_backward.cu``, on the CPU autograd of the plain version.  The JAX package's blocked one-hot einsum
 splat is a TPU formulation and is not carried over.
 """
 import torch

@@ -4,14 +4,15 @@ The port's ``softsplat`` is differentiable in inputs, flow and metric, in
 all four modes, as the JAX package's ``ops/softsplat.py:softsplat`` is
 (its Pallas splat's custom vjp is the einsum splat's autodiff,
 ``ops/pallas/splat.py:104``).  On the CPU the port differentiates its plain
-version; ``softsplat_vjp`` is the backward the card runs (the normaliser's
-splat and the gather vjp, here their plain versions), and
-``summation_splat_vjp_plain`` the gather that ``csrc/softsplat_backward.cu``
-computes.  Inputs come from numpy at a seed; flows keep every fractional
-part in [0.05, 0.95], where floor() (a constant to both) cannot flip
-between the two frameworks' coordinate arithmetic.  Tolerances: 1e-4
-against JAX (its einsum sums the splat over one-hot matrices), 1e-6 of the
-largest value between the port's own two formulations of the same sums.
+version; ``softsplat_vjp_plain`` is the per-source formula that the card's
+one backward launch (``csrc/softsplat_backward.cu``) computes, from the
+normaliser the forward keeps, and ``summation_splat_vjp_plain`` its
+summation mode's gather.  Inputs come from numpy at a seed; flows keep
+every fractional part in [0.05, 0.95], where floor() (a constant to both)
+cannot flip between the two frameworks' coordinate arithmetic.
+Tolerances: 1e-4 against JAX (its einsum sums the splat over one-hot
+matrices), 1e-6 of the largest value between the port's own two
+formulations of the same sums.
 """
 import dataclasses
 
@@ -28,8 +29,10 @@ from temporalstereo_tpu.ops.softsplat import softsplat as jax_softsplat
 from temporalstereo_tpu_torch.config import get_cfg
 from temporalstereo_tpu_torch.kernels import (softsplat, softsplat_plain,
                                               softsplat_vjp,
-                                              summation_splat_vjp,
+                                              softsplat_vjp_plain,
                                               summation_splat_vjp_plain)
+from temporalstereo_tpu_torch.kernels.splat import (_summation_plain,
+                                                    _weighted)
 from temporalstereo_tpu_torch.models import build_model
 
 MODES = ("summation", "average", "linear", "softmax")
@@ -93,8 +96,9 @@ def _assert_close(ours, theirs, tol, what):
 @pytest.mark.parametrize("method", ("pallas", "einsum"))
 @pytest.mark.parametrize("mode", MODES)
 def test_softsplat_gradients_match_jax(mode, method):
-    """Autograd of the port's softsplat, and the card's backward chain
-    (``softsplat_vjp``), against ``jax.vjp`` of the JAX softsplat: the
+    """Autograd of the port's softsplat, and the card's backward formula
+    (``softsplat_vjp_plain``, its normaliser splatted again or kept by the
+    forward: the same bits), against ``jax.vjp`` of the JAX softsplat: the
     Pallas splat in interpret mode (as tests/test_pallas.py runs it) and
     the einsum splat.  In the normalised modes JAX's vjp is NaN for every
     source as soon as one target cell gets no weight (its derivative of
@@ -113,12 +117,21 @@ def test_softsplat_gradients_match_jax(mode, method):
     assert len(ours) == len(theirs) == (2 if metric is None else 3)
     assert np.abs(theirs[1]).max() > 0          # the flow has a gradient
     _assert_close(ours, theirs, JAX_TOL, f"autograd {mode}")
-    chain = softsplat_vjp(torch.from_numpy(inputs), torch.from_numpy(flow),
-                          None if metric is None else torch.from_numpy(metric),
-                          out, torch.from_numpy(g), mode)
+    args = _torch_args(inputs, flow, metric)
+    chain = softsplat_vjp(*args, out, torch.from_numpy(g), mode)
     assert (chain[2] is None) == (metric is None)
     _assert_close([x.numpy() for x in chain if x is not None], theirs,
                   JAX_TOL, f"softsplat_vjp {mode}")
+    out_k, norm = softsplat_plain(*args, mode, keep_norm=True)
+    kept = softsplat_vjp_plain(*args, out_k, torch.from_numpy(g), mode,
+                               norm=norm)
+    for a, b in zip(kept, chain):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _torch_args(inputs, flow, metric):
+    return (torch.from_numpy(inputs), torch.from_numpy(flow),
+            None if metric is None else torch.from_numpy(metric))
 
 
 @pytest.mark.parametrize("mode", MODES[1:])
@@ -131,16 +144,13 @@ def test_softsplat_gradients_finite_where_cells_are_empty(mode):
     ours, out = _port_grads(mode, inputs, flow, metric, g)
     leaves = [torch.from_numpy(x).double().requires_grad_()
               for x in (inputs, flow, metric) if x is not None]
-    from temporalstereo_tpu_torch.kernels.splat import (_summation_plain,
-                                                        _weighted)
     s = _summation_plain(_weighted(leaves[0], leaves[2] if len(leaves) == 3
                                    else None, mode), leaves[1])
     assert (s[..., -1] == 0).any()              # some cells are empty
     ref = torch.autograd.grad(s[..., :-1] / (s[..., -1:] + 1e-22), leaves,
                               torch.from_numpy(g).double())
-    chain = softsplat_vjp(torch.from_numpy(inputs), torch.from_numpy(flow),
-                          None if metric is None else torch.from_numpy(metric),
-                          out, torch.from_numpy(g), mode)
+    chain = softsplat_vjp(*_torch_args(inputs, flow, metric), out,
+                          torch.from_numpy(g), mode)
     for got in (ours, [x.numpy() for x in chain if x is not None]):
         for a, r in zip(got, ref):
             assert np.isfinite(a).all()
@@ -170,9 +180,9 @@ def _vjp_case(case, seed=9):
 
 @pytest.mark.parametrize("case", ("spread", "one_point"))
 def test_summation_vjp_plain_matches_autograd(case):
-    """The gather formula the kernel computes against autograd of the plain
-    scatter, on strided inputs, sources spread and all on one point; the
-    CPU wrapper runs the same plain gather."""
+    """The gather formula the kernel computes in summation mode against
+    autograd of the plain scatter, on strided inputs, sources spread and
+    all on one point; the CPU wrapper runs the same plain gather."""
     values, flow, g = _vjp_case(case)
     assert not values.is_contiguous() and not flow.is_contiguous()
     leaves = [values.detach().requires_grad_(),
@@ -180,11 +190,60 @@ def test_summation_vjp_plain_matches_autograd(case):
     out = softsplat_plain(*leaves, None, "summation")
     want = torch.autograd.grad(out, leaves, g)
     got = summation_splat_vjp_plain(values, flow, g)
-    wrapped = summation_splat_vjp(values, flow, g)
+    wrapped = softsplat_vjp(values, flow, None, None, g, "summation")
     for a, b, c in zip(got, want, wrapped):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=PORT_TOL * float(b.abs().max()))
         assert torch.equal(a, c)
+
+
+def _division_chain(inputs, flow, metric, out, g, mode, eps=1e-22):
+    """The splat's vjp as a chain of whole-tensor steps: the normaliser
+    splatted again, the output's gradient divided by it (n + eps) at the
+    targets, the summation splat's gather over all C + 1 channels, then the
+    chain to inputs and metric."""
+    vals = _weighted(inputs, metric, mode)
+    if mode == "summation":
+        return (*summation_splat_vjp_plain(vals, flow, g), None)
+    weight = vals[..., -1:]
+    denom = _summation_plain(weight, flow) + eps
+    g_s = torch.cat([g / denom, -(g * out).sum(-1, keepdim=True) / denom],
+                    dim=-1)
+    g_vals, g_flow = summation_splat_vjp_plain(vals, flow, g_s)
+    g_in, g_w = g_vals[..., :-1], g_vals[..., -1:]
+    if mode == "average":
+        return g_in, g_flow, None
+    g_metric = (g_in * inputs).sum(-1, keepdim=True) + g_w
+    if mode == "softmax":
+        g_metric = g_metric * weight
+    return g_in * weight, g_flow, g_metric
+
+
+@pytest.mark.parametrize("flow_span", (1.0, 3.0))
+@pytest.mark.parametrize("mode", MODES)
+def test_softsplat_vjp_plain_matches_the_division_chain(mode, flow_span):
+    """The per-source formula (reciprocal of the kept normaliser) against
+    the chain that divides by a normaliser splatted again, within 1e-6 of
+    the largest value; and the forward's kept normaliser bit-equal to the
+    weight channel's own splat."""
+    inputs, flow, metric, g = _case(mode, seed=7, flow_span=flow_span)
+    args = _torch_args(inputs, flow, metric)
+    out, norm = softsplat_plain(*args, mode, keep_norm=True)
+    assert torch.equal(out, softsplat_plain(*args, mode))
+    if mode != "summation":
+        weight = _weighted(args[0], args[2], mode)[..., -1:]
+        assert torch.equal(norm, _summation_plain(weight, args[1]))
+    else:
+        assert norm is None
+    got = softsplat_vjp_plain(*args, out, torch.from_numpy(g), mode,
+                              norm=norm)
+    want = _division_chain(*args, out, torch.from_numpy(g), mode)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=PORT_TOL * float(b.abs().max()))
 
 
 def test_update_prev_info_stops_the_gradient():
