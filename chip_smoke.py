@@ -59,7 +59,10 @@ non-zero exit code and no result line:
      against the unfolded one, each frame from the unfolded model's state
      (gated at 2e-3); the video_inference CLI from a
      bundle at 384x1248 on six PNG frames the port's codec wrote; the
-     bench (python -m temporalstereo_tpu_torch.bench) and its JSON line;
+     stage marks of the flagship bundle at B=1 and B=8: each steady
+     replay's segments from the marks' ring against the same segments
+     between the mark kernels in a torch.profiler trace (within
+     max(3%, 0.02 ms)), and the stream time the marks hold a replay;
   9. evaluation: the tiny f32 model's eval metrics on the card against
      the CPU (T=3); a synthetic KITTI 2015 multiview split (two samples of
      11 frames of 375x1242 PNGs, both views' sparse ground truth, calib
@@ -1596,17 +1599,22 @@ def phase_serving(torch, port, kernels, card, frames=12, warm=4):
         second = []
 
         def replay_all():
+            kernels.reset_launches()
             bundle.reset()
             second.clear()
             for left, right in pairs:
                 second.append(bundle.step(left, right, K, bl, T))
         _, per_run = kernel_counts(torch, replay_all)
+        replayed = dict(kernels.LAUNCHES)
         if not all(torch.equal(a, b) for a, b in zip(outs, second)):
             raise AssertionError(f"serving {label}: two replays differ")
         want = {"fused_cost_base": 2 * frames, "softsplat": frames - 1}
         if per_run != want:
             raise AssertionError(f"serving {label}: the replayed stream ran "
                                  f"{per_run}, not {want}")
+        if replayed != {**{name: 0 for name in replayed}, **per_run}:
+            raise AssertionError(f"serving {label}: LAUNCHES counted "
+                                 f"{replayed} for replays that ran {per_run}")
         steady_events, steady = kernel_counts(
             torch, lambda: bundle.step(*pairs[0], K, bl, T))
         if steady != {"fused_cost_base": 2, "softsplat": 1}:
@@ -1647,8 +1655,7 @@ def phase_serving(torch, port, kernels, card, frames=12, warm=4):
             f"{held / 2 ** 30:.3f} GiB, peak {peak / 2 ** 30:.3f} GiB above "
             f"the weights and the frames on {card}")
         if label == "unfolded":
-            launches = {name: 0 for name in kernels.LAUNCHES}
-            launches.update(per_run)
+            launches = replayed
         del bundle, outs, second, eager, prev
     del ref, model
     phase_fold_tiny(torch, port, serving, fold_batch_norms)
@@ -1756,19 +1763,100 @@ def phase_cli(torch, port, card, frames=6):
         f"process wall {wall:.1f} s on {card}")
 
 
-def phase_bench(card):
-    """python -m temporalstereo_tpu_torch.bench: its JSON line."""
-    repo = pathlib.Path(__file__).resolve().parent
-    out = subprocess.run([sys.executable, "-m",
-                          "temporalstereo_tpu_torch.bench"], cwd=repo,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise AssertionError(f"bench failed:\n{out.stderr}")
-    line = out.stdout.strip().splitlines()[-1]
-    result = json.loads(line)
-    if not result["value"] > 0:
-        raise AssertionError(f"bench: {line}")
-    log(8, f"bench on {card}: {line}")
+MARK_KERNEL = "trace_mark_kernel"
+MARK_TOL = (0.03, 0.02)         # ring against profiler: share, floor in ms
+
+
+def _traced_marks(events, points, replays):
+    """Each replay's marks (device events, in order) in a trace, or None
+    where the profiler lost some."""
+    events = sorted(events, key=lambda e: e.time_range.start)
+    marks = [e for e in events if MARK_KERNEL in e.name]
+    if len(marks) != points * replays:
+        return None
+    return [marks[i * points:(i + 1) * points] for i in range(replays)]
+
+
+def _held_us(events, mark):
+    """The stream time a mark holds: from the end of the device operation
+    before it to the start of the one after it."""
+    i = events.index(mark)
+    return events[i + 1].time_range.start - events[i - 1].time_range.end
+
+
+def phase_marks(torch, port, card, replays=10, tries=3):
+    """The stage marks of the flagship bundle (tracing.py) at B=1 and B=8:
+    ``replays`` steady replays under torch.profiler; each replay's
+    segments from the marks' ring against the same segments between the
+    mark kernels' starts in the trace, within max(3%, 0.02 ms); the marks'
+    own device time and the stream time the inner ones hold (from the
+    device operation before each to the one after it: an upper bound of
+    their cost); stats() of the bundle."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from temporalstereo_tpu_torch import serving
+
+    h, w = 384, 1248
+    model = serving_model(torch, port, port.get_cfg(opts=FLAGSHIP))
+    for b in (1, 8):
+        bundle = serving.StreamingBundle(serving.bundle_meta(model, b, h, w),
+                                         model, progress=lambda msg: None)
+        g = torch.Generator(device="cuda").manual_seed(30 + b)
+        left, right = (torch.rand((b, h, w, 3), generator=g, device="cuda")
+                       for _ in range(2))
+        K, bl, T = (x.expand(b, *x.shape[1:]).contiguous()
+                    for x in _geometry(torch, h, w, "cuda"))
+        for _ in range(len(bundle.meta["stages"]) + 2):
+            bundle.step(left, right, K, bl, T)
+        marks = bundle.records.marks["steady"]
+        points = len(marks.points)
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(replays):
+                    bundle.step(left, right, K, bl, T)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events() if e.device_type
+                             == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            traced = _traced_marks(events, points, replays)
+            if traced is not None:
+                break
+        if traced is None:
+            raise AssertionError(f"marks B={b}: the profiler lost mark "
+                                 f"kernels in {tries} traces")
+        ring = marks.segment_ms(replays)
+        worst, rows = 0.0, {}
+        for i, seg in enumerate(marks.segments):
+            for r, row in enumerate(traced):
+                prof_ms = (row[i + 1].time_range.start
+                           - row[i].time_range.start) / 1e3
+                gap = abs(float(ring[seg][r]) - prof_ms)
+                if gap > max(MARK_TOL[0] * prof_ms, MARK_TOL[1]):
+                    raise AssertionError(
+                        f"marks B={b} replay {r} {seg}: ring "
+                        f"{float(ring[seg][r]):.4f} ms, profiler "
+                        f"{prof_ms:.4f} ms")
+                worst = max(worst, gap)
+            rows[seg] = round(float(sorted(ring[seg])[replays // 2]), 4)
+        marked = sorted(sum(float(ring[s][r]) for s in marks.segments)
+                        for r in range(replays))[replays // 2]
+        own = sum(e.time_range.elapsed_us() for row in traced
+                  for e in row) / replays
+        held = sum(_held_us(events, e) for row in traced
+                   for e in row[1:-1]) / replays
+        stats = bundle.stats(replays)
+        log(8, f"marks B={b}: {replays} steady replays, ring against "
+            f"profiler worst {worst * 1e3:.2f} us (limit max(3%, 20 us)); "
+            f"segment medians ms {rows}, marked replay {marked:.3f} ms; "
+            f"{points} marks a replay: own device time {own:.2f} us, the "
+            f"{points - 2} inner ones hold {held:.2f} us of the stream "
+            f"({100 * held / 1e3 / marked:.3f}% of the replay); host ms "
+            f"{stats['host_ms']}, replays {stats['replays']} on {card}")
+        del bundle
+    del model
+    torch.cuda.empty_cache()
 
 
 # the evaluation phase: the KITTI 2015 val path at full width
@@ -2771,16 +2859,20 @@ def phase_norms(torch, port, kernels, card, frames=12):
                                  f"rel {rel:.3g} > {CARD_VS_CPU_TOL}")
 
         def replay_all():
+            kernels.reset_launches()
             bundle.reset()
             for left, right in pairs:
                 bundle.step(left, right, K, bl, T)
         _, per_run = kernel_counts(torch, replay_all)
+        launches = dict(kernels.LAUNCHES)
         if per_run != {"fused_cost_base": 2 * frames,
                        "softsplat": frames - 1}:
             raise AssertionError(f"norms {label} bundle: replays ran "
                                  f"{per_run}")
-        launches = {name: 0 for name in kernels.LAUNCHES}
-        launches.update(per_run)
+        if launches != {**{name: 0 for name in launches}, **per_run}:
+            raise AssertionError(f"norms {label} bundle: LAUNCHES counted "
+                                 f"{launches} for replays that ran "
+                                 f"{per_run}")
         out[label].update(bundle_ms=_steady_ms(secs),
                           bundle_launches=launches)
         log(15, f"kitti2015-multi {label} served, {len(folded)} BatchNorms "
@@ -4262,8 +4354,8 @@ def main():
 
     t_start = time.perf_counter()
 
-    # --only=3,19: a development run of phases 1, 2 and those named; it
-    # prints no kernels line and no result line
+    # --only=3,19: a development run of phases 1, 2 and those named (3, 8,
+    # 19, 20); it prints no kernels line and no result line
     only = next((set(a.split("=", 1)[1].split(","))
                  for a in sys.argv[1:] if a.startswith("--only=")), None)
 
@@ -4320,6 +4412,9 @@ def main():
     if only is not None:
         if "3" in only:
             timed(3, kernel_phases)
+        if "8" in only:
+            timed(8, phase_marks, torch, port, card)
+            timed(8, phase_serving, torch, port, kernels, card)
         if "19" in only:
             timed(19, phase_spatial, torch, port, kernels, card)
         if "20" in only:
@@ -4340,7 +4435,7 @@ def main():
     launches["stream_graphs"] = timed(8, phase_serving, torch, port, kernels,
                                       card)
     timed(8, phase_cli, torch, port, card)
-    timed(8, phase_bench, card)
+    timed(8, phase_marks, torch, port, card)
     launches["eval"] = timed(9, phase_eval, torch, port, kernels, card)
     launches["fit"], launches["fit_resume"] = timed(
         10, phase_fit, torch, port, kernels, card)

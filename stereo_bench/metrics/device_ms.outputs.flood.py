@@ -1,0 +1,11 @@
+"""ms: the median over the window's replays of the device time between the
+program's marks at the precise stage's exit and the stage function's end:
+the full-resolution resizes, the state's casts and the steady stage's state
+copy (the device's own clock, ``program_trace.segment_ms``)."""
+from stereo_bench.program_trace import segment_ms
+
+UNIT = "ms"
+
+
+def read(run):
+    return segment_ms(run, "outputs")

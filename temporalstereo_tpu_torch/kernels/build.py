@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("fused_cost_base", "fused_cost_base_backward", "shift_1d",
-           "softsplat", "softsplat_backward")
+           "softsplat", "softsplat_backward", "trace_mark")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

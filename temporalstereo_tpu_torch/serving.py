@@ -36,6 +36,10 @@ shared pool requires: a stage may reuse memory that was an earlier stage's
 scratch.  A capture or replay that fails raises; nothing falls back to
 eager.  On a CPU model (the tests) the same stage functions run eagerly.
 
+Each stage graph also holds the device marks of ``tracing.py`` (the model's
+stages on the device's clock, every replay), ``step`` records its host
+spans and counts replays, and ``stats()`` sums them up for an operator.
+
 Operating points (the JAX package's ``LatencyModel`` and
 ``select_operating_point``): a latency model fit to measured (streams,
 chunk, wall ms) points, where ``streams`` is the bundle's batch (one
@@ -57,6 +61,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import tracing
+from .kernels import LAUNCHES
 from .models import backbone_memory_shapes, init_prev_info, streaming_step
 from .models.stereo import PrevInfo, TemporalStereoNet
 
@@ -293,7 +299,9 @@ class StreamingBundle:
 
     left/right [B, H, W, 3] of the meta's input type, K [B, 3, 3],
     baseline [B] and T [B, 4, 4] f32, on the model's device.
-    ``capture_seconds`` holds each stage's warm-up and capture time."""
+    ``capture_seconds`` holds each stage's warm-up and capture time;
+    ``records`` (``tracing.Records``) its stages' marks, host spans and
+    counters, ``stats()`` their summary."""
 
     def __init__(self, meta: Dict[str, Any], model: TemporalStereoNet,
                  progress: Callable = print):
@@ -312,6 +320,10 @@ class StreamingBundle:
         self._graphs: Dict[str, Tuple[torch.cuda.CUDAGraph,
                                       torch.Tensor]] = {}
         self.capture_seconds: Dict[str, float] = {}
+        self.records = tracing.Records(
+            [(name, warp) for name, _, warp in stage_list(model)],
+            self.device)
+        tracing.keep(self.records)
         if self.device.type == "cuda":
             self._capture(progress)
         self.reset()
@@ -341,13 +353,16 @@ class StreamingBundle:
                 t0 = time.perf_counter()
                 fn = self._fns[name]
 
-                def captured(fn=fn, prev=prev, steady=name == "steady"):
-                    disp, new_prev = fn(*frame, prev, *geometry)
-                    if steady:
-                        for dst, src in zip(_state_tensors(prev),
-                                            _state_tensors(new_prev)):
-                            if dst.data_ptr() != src.data_ptr():
-                                dst.copy_(src)
+                def captured(fn=fn, prev=prev, name=name):
+                    before = dict(LAUNCHES)
+                    with self.records.marks[name].around(self.model):
+                        disp, new_prev = fn(*frame, prev, *geometry)
+                        if name == "steady":
+                            for dst, src in zip(_state_tensors(prev),
+                                                _state_tensors(new_prev)):
+                                if dst.data_ptr() != src.data_ptr():
+                                    dst.copy_(src)
+                    self.records.captured(name, before)
                     return disp, new_prev
 
                 graph, (disp, new_prev), warm = capture_graph(
@@ -382,6 +397,7 @@ class StreamingBundle:
              baseline: torch.Tensor, T_past_to_now: torch.Tensor
              ) -> torch.Tensor:
         """One frame -> full-resolution disparity [B, H, W, 1]."""
+        t_step = time.perf_counter_ns()
         args = {"left": left, "right": right, "K": K, "baseline": baseline,
                 "T": T_past_to_now}
         for key, x in args.items():
@@ -394,14 +410,29 @@ class StreamingBundle:
             for key, x in args.items():
                 self._inputs[key].copy_(x)
             graph, disp = self._graphs[name]
+            t_replay = time.perf_counter_ns()
             graph.replay()
+            t_replayed = time.perf_counter_ns()
             disp = disp.clone()
         else:
-            disp, new_prev = self._fns[name](left, right, self._prev, K,
-                                             baseline, T_past_to_now)
+            t_replay = time.perf_counter_ns()
+            with self.records.marks[name].around(self.model):
+                disp, new_prev = self._fns[name](left, right, self._prev, K,
+                                                 baseline, T_past_to_now)
+            t_replayed = time.perf_counter_ns()
             self._prev = new_prev
         self._frame += 1
+        self.records.stepped(name, t_step, t_replay, t_replayed,
+                             time.perf_counter_ns())
         return disp
+
+    def stats(self, n: Optional[int] = None) -> Dict[str, Any]:
+        """Replays by stage, each stage's segments' p50 / p99 device ms
+        over its newest n replays, the p50 / p99 host ms of ``step`` and
+        ``replay`` over the newest n steps, and ``kernels.LAUNCHES``
+        (``tracing.Records.stats``; reading the device marks waits for the
+        card)."""
+        return self.records.stats(n)
 
 
 def export_streaming_bundle(model: TemporalStereoNet, path: str, b: int,

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from temporalstereo_tpu_torch.kernels import cost, shift, splat
+from temporalstereo_tpu_torch.kernels import cost, mark, shift, splat
 
 CSRC = (Path(__file__).resolve().parents[1] / "temporalstereo_tpu_torch"
         / "kernels" / "csrc")
@@ -29,8 +29,8 @@ def _signatures():
     return sigs
 
 
-@pytest.mark.parametrize("module", (cost, shift, splat),
-                         ids=("cost", "shift", "splat"))
+@pytest.mark.parametrize("module", (cost, shift, splat, mark),
+                         ids=("cost", "shift", "splat", "mark"))
 def test_argtypes_match_the_c_entry_points(module):
     sigs = _signatures()
     for name, argtypes in module.ARGTYPES.items():
@@ -39,5 +39,6 @@ def test_argtypes_match_the_c_entry_points(module):
 
 
 def test_every_entry_point_has_argtypes():
-    declared = {**cost.ARGTYPES, **shift.ARGTYPES, **splat.ARGTYPES}
+    declared = {**cost.ARGTYPES, **shift.ARGTYPES, **splat.ARGTYPES,
+                **mark.ARGTYPES}
     assert sorted(declared) == sorted(_signatures())
